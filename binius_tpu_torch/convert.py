@@ -1,8 +1,10 @@
 """Carry state between the JAX package and the port.
 
 The JAX package holds words as uint32 numpy/JAX arrays; the port holds the
-same bits as ``torch.int32``. These two functions cross over with the bits
-unchanged, whatever the shape: P1 words, (N, 4) B128 limbs, (N, 8) digests.
+same bits as ``torch.int32``. `from_reference` and `to_reference` cross
+over with the bits unchanged, whatever the shape: P1 words, (N, 4) B128
+limbs, (N, 8) digests. Evaluation claims and FRI parameters cross as plain
+ints; proofs are plain `bytes` in both packages.
 """
 
 from __future__ import annotations
@@ -27,3 +29,22 @@ def to_reference(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected torch.int32, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Protocol objects (duck-typed: the port never imports the JAX package)
+# ---------------------------------------------------------------------------
+
+def claims_from_reference(claims) -> list:
+    """The JAX package's `RingSwitchEvalClaim`s -> the port's (committed
+    index, level, point, value)."""
+    from .protocols.ring_switch import RingSwitchEvalClaim
+    return [RingSwitchEvalClaim(int(c.committed_idx), int(c.level),
+                                tuple(int(x) for x in c.point), int(c.eval)) for c in claims]
+
+
+def fri_params_from_reference(p):
+    """The JAX package's `FRIParams` -> the port's."""
+    from .protocols.fri import FRIParams
+    return FRIParams(int(p.log_dim), int(p.log_inv_rate), int(p.log_batch_size),
+                     tuple(int(a) for a in p.fold_arities), int(p.n_test_queries))

@@ -27,12 +27,13 @@ BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("k2_transpose32", "k3_ntt_local", "k4_ntt_pair", "k5_groestl_leaf",
-           "k6_groestl_pairs")
+KERNELS = ("k1_tower_mul", "k2_transpose32", "k3_ntt_local", "k4_ntt_pair",
+           "k5_groestl_leaf", "k6_groestl_pairs")
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
+    "k1_tower_mul": (_P, _P, _P, _I, _L, _P),
     "k2_transpose32": (_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _P),
     "k3_ntt_local": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "k4_ntt_pair": (_P, _P, _I, _I, _I, _I, _P),
@@ -58,11 +59,12 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu (one nvcc each, in parallel) and link; returns the
-    library path. A library already built from the same sources is reused.
+    library path. A library already built from the same sources and headers
+    (csrc/*.cuh) is reused.
     The compiler's report (registers, spills) is kept in build/ptxas.log."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]

@@ -3,8 +3,9 @@
 Bit ``b`` of 32 consecutive elements sits in one 32-bit word, so an element
 batch becomes ``2^level`` bit planes. The transform in and out is five
 masked-shift rounds per 32x32 bit block (Hacker's Delight 7-3). These are
-the plain versions of K2 (`bitslice_cuda.transpose32`) and of the
-Karatsuba network inside K3/K4; semantics are `binius_tpu/fields/bitslice.py`.
+the plain versions of K2 (`bitslice_cuda.transpose32`), of K1
+(`mul_planes`) and of the Karatsuba network inside K3/K4; semantics are
+`binius_tpu/fields/bitslice.py`.
 """
 
 from __future__ import annotations
@@ -86,3 +87,38 @@ def _mul_bs(level: int, a: list, b: list) -> list:
     mid = _mul_bs(level - 1, _xor(a0, a1), _xor(b0, b1))
     z1 = _xor(mid, _xor(z0, z2))
     return _xor(z0, z2) + _xor(z1, _mul_alpha_bs(level - 1, z2))
+
+
+# ---------------------------------------------------------------------------
+# The same network on stacked plane tensors: the plain version of K1
+# ---------------------------------------------------------------------------
+
+def _mul_alpha_stacked(level: int, a: torch.Tensor) -> torch.Tensor:
+    """`_mul_alpha_bs` on planes [..., 2^level, W]."""
+    if level == 0:
+        return a
+    h = 1 << (level - 1)
+    a0, a1 = a[..., :h, :], a[..., h:, :]
+    return torch.cat([a1, a0 ^ _mul_alpha_stacked(level - 1, a1)], dim=-2)
+
+
+def _mul_stacked(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`_mul_bs` on planes [..., 2^level, W]: the three half products of each
+    Karatsuba step stack on a new leading dim, so the 3^level base ANDs run
+    as one tensor op instead of thousands of single-plane ops."""
+    if level == 0:
+        return a & b
+    h = 1 << (level - 1)
+    a0, a1 = a[..., :h, :], a[..., h:, :]
+    b0, b1 = b[..., :h, :], b[..., h:, :]
+    z = _mul_stacked(level - 1, torch.stack([a0, a1, a0 ^ a1]),
+                     torch.stack([b0, b1, b0 ^ b1]))
+    z0, z2, mid = z[0], z[1], z[2]
+    lo = z0 ^ z2
+    return torch.cat([lo, mid ^ lo ^ _mul_alpha_stacked(level - 1, z2)], dim=-2)
+
+
+def mul_planes(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Bitsliced multiply of planes [2^level, n_words]: the plain version of
+    K1 (`bitslice_cuda.mul_planes`), gate for gate `_mul_bs`."""
+    return _mul_stacked(level, a, b)

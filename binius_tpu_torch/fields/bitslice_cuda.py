@@ -1,13 +1,18 @@
-"""K2: the 32x32 bit transpose on the card, and the bitsliced layout on top.
+"""K1 and K2: the bitsliced tower multiply and the 32x32 bit transpose on
+the card, and the element-wise multiply built from them.
 
-Counterpart of `binius_tpu/fields/bitslice_pallas.py` (`transpose32`,
-`to_bitsliced`, `from_bitsliced`). The kernel (`csrc/transpose32.cu`)
-takes element strides, so the (N, limbs) <-> [limbs, 32, N/32] relayout
-is folded into its loads and stores. On a CPU tensor each wrapper takes the
-plain version in `bitslice`; on a CUDA tensor it launches K2 or raises.
+Counterpart of `binius_tpu/fields/bitslice_pallas.py` (`mul_planes`,
+`transpose32`, `to_bitsliced`, `from_bitsliced`, `mul`). K2
+(`csrc/transpose32.cu`) takes element strides, so the (N, limbs) <->
+[limbs, 32, N/32] relayout is folded into its loads and stores. K1
+(`csrc/tower_mul.cu`) runs the Karatsuba gate network on planes at levels
+5..7. On a CPU tensor each wrapper takes the plain version in `bitslice`;
+on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -70,3 +75,45 @@ def from_bitsliced(level: int, planes: torch.Tensor) -> torch.Tensor:
         if level < 5:
             out = out & ((1 << nb) - 1)
     return out
+
+
+def mul_planes(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1: element-wise product of bit planes [2^level, W] at level 5..7
+    (bitslice.mul_planes)."""
+    if not a.is_cuda:
+        return bitslice.mul_planes(level, a, b)
+    if not 5 <= level <= 7:
+        raise ValueError(f"mul_planes: level {level} is not 5..7")
+    for t, name in ((a, "mul_planes a"), (b, "mul_planes b")):
+        cuda_lib.check(t, name, ndim=2)
+        if t.shape[0] != 1 << level:
+            raise ValueError(f"{name}: expected {1 << level} planes, got {tuple(t.shape)}")
+    if a.shape != b.shape:
+        raise ValueError(f"mul_planes: shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+    out = torch.empty_like(a)
+    if a.shape[1]:
+        cuda_lib.call("k1_tower_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(), level,
+                      a.shape[1])
+    return out
+
+
+def mul(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Element-wise tower product at level 5..7 as `bitslice_pallas.mul`
+    computes it: both operands to bit planes (K2), the network (K1), back
+    (K2). Batch shapes broadcast (a scalar operand is copied out to the
+    batch); the batch is zero-padded to a multiple of 32 elements, and zero
+    words are absorbing for the network."""
+    batch = torch.broadcast_shapes(tower.batch_shape(level, a), tower.batch_shape(level, b))
+    shape = tower.elem_shape(level, batch)
+    n = math.prod(batch)
+    if n == 0:
+        return a.new_zeros(shape)
+    flat = tower.elem_shape(level, (n,))
+    ops = [x.expand(shape).reshape(flat) for x in (a, b)]
+    pad = -n % 32
+    if pad:
+        ops = [torch.cat([x, x.new_zeros(tower.elem_shape(level, (pad,)))]) for x in ops]
+    planes = mul_planes(level, to_bitsliced(level, ops[0].contiguous()),
+                        to_bitsliced(level, ops[1].contiguous()))
+    out = from_bitsliced(level, planes)
+    return out[:n].reshape(shape)

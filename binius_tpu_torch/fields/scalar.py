@@ -2,7 +2,8 @@
 
 The port's own copy of the pure-Python tower arithmetic of
 `binius_tpu/fields/scalar.py` (the native C dispatch is left out): the
-ground truth that the host-side twiddle tables are built from.
+ground truth that the host-side twiddle tables and the B8 device tables are
+built from, and the verifier's arithmetic.
 
     T_0 = F2,   T_k = T_{k-1}[X_k] / (X_k^2 + X_{k-1}*X_k + 1)   with X_0 = 1.
 
@@ -13,6 +14,8 @@ a0 | (a1 << 2^(k-1)). Levels 0..7 = B1, B2, B4, B8, B16, B32, B64, B128.
 from __future__ import annotations
 
 import functools
+
+import numpy as np
 
 
 def bits(level: int) -> int:
@@ -158,3 +161,25 @@ def invert_py(level: int, a: int) -> int:
 
 
 mul, square, invert = mul_py, square_py, invert_py
+
+
+# -- B8 tables for the device base case (levels <= 3) -----------------------
+
+@functools.lru_cache(maxsize=None)
+def b8_mul_table() -> np.ndarray:
+    """Flat 65536-entry uint8 table: [(a << 8) | b] = a * b in T_3. Covers
+    every level <= 3: subfields embed as the identity and are closed."""
+    if _MUL8 is None:
+        _init_fast_tables()
+    return np.array(_MUL8, dtype=np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def b8_square_table() -> np.ndarray:
+    return np.array([square_py(3, a) for a in range(256)], dtype=np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def b8_invert_table() -> np.ndarray:
+    """invert(0) is 0 in the table; the device ops use that convention."""
+    return np.array([0] + [invert_py(3, a) for a in range(1, 256)], dtype=np.uint8)

@@ -9,8 +9,8 @@ Counterpart of `binius_tpu/hash/groestl.py` without its native C dispatch:
     `leaf_hash_t`), the plain version of K5 and K6, which runs on the host
     (CPU tensors) and on the card alike;
   * the T-table form on 64-bit column ints (`_ttables`, `_col_consts`,
-    `_permute_cols`, `groestl256`): one-shot host digests, and the tables
-    that K5 and K6 read;
+    `_permute_cols`, `groestl256`, the incremental `Groestl256` of the
+    transcript): host digests, and the tables that K5 and K6 read;
   * numpy entry points for the host top of a Merkle tree
     (`compress_pairs`, `hash_leaves_np`).
 
@@ -178,12 +178,12 @@ def leaf_hash_t(blobs: torch.Tensor) -> torch.Tensor:
 
 def compress_pairs(pairs: np.ndarray) -> np.ndarray:
     """Host 2-to-1 compression: (..., 64) uint8 numpy -> (..., 32) uint8."""
-    return compress_pairs_t(torch.from_numpy(np.ascontiguousarray(pairs, dtype=np.uint8))).numpy()
+    return compress_pairs_t(torch.from_numpy(np.array(pairs, dtype=np.uint8))).numpy()
 
 
 def hash_leaves_np(blobs: np.ndarray) -> np.ndarray:
     """Host digest of each row: (N, L) uint8 numpy -> (N, 32) uint8."""
-    return leaf_hash_t(torch.from_numpy(np.ascontiguousarray(blobs, dtype=np.uint8))).numpy()
+    return leaf_hash_t(torch.from_numpy(np.array(blobs, dtype=np.uint8))).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -249,14 +249,51 @@ def _cols_to_bytes(cols: list[int]) -> bytes:
     return b"".join(c.to_bytes(8, "little") for c in cols)
 
 
+def _compress_cols(h: list[int], m: list[int]) -> list[int]:
+    hp = _permute_cols([a ^ b for a, b in zip(h, m)], False)
+    qm = _permute_cols(m, True)
+    return [a ^ b ^ c for a, b, c in zip(hp, qm, h)]
+
+
+def _digest_cols(h: list[int], tail: bytes) -> bytes:
+    """Compress the padded tail's blocks into h, then the output transform."""
+    for i in range(len(tail) // 64):
+        h = _compress_cols(h, _bytes_to_cols(tail[64 * i:64 * (i + 1)]))
+    x = _permute_cols(h, False)
+    return _cols_to_bytes([a ^ b for a, b in zip(x, h)])[32:]
+
+
 def groestl256(data: bytes) -> bytes:
     """One-shot Grøstl-256 digest (host, T-table path)."""
     msg = bytes(data) + groestl256_pad(len(data)).tobytes()
-    h = _bytes_to_cols(IV_256.tobytes())
-    for i in range(len(msg) // 64):
-        m = _bytes_to_cols(msg[64 * i:64 * (i + 1)])
-        hp = _permute_cols([a ^ b for a, b in zip(h, m)], False)
-        qm = _permute_cols(m, True)
-        h = [a ^ b ^ c for a, b, c in zip(hp, qm, h)]
-    x = _permute_cols(h, False)
-    return _cols_to_bytes([a ^ b for a, b in zip(x, h)])[32:]
+    return _digest_cols(_bytes_to_cols(IV_256.tobytes()), msg)
+
+
+class Groestl256:
+    """Incremental Grøstl-256 (update / copy / finalize), the hash of the
+    Fiat-Shamir challenger."""
+
+    def __init__(self):
+        self._buf = bytearray()
+        self._h = _bytes_to_cols(IV_256.tobytes())
+        self._n_bytes = 0
+
+    def update(self, data: bytes) -> "Groestl256":
+        self._buf.extend(data)
+        self._n_bytes += len(data)
+        n_full = len(self._buf) // 64
+        for i in range(n_full):
+            self._h = _compress_cols(self._h, _bytes_to_cols(self._buf[64 * i:64 * (i + 1)]))
+        del self._buf[:64 * n_full]
+        return self
+
+    def copy(self) -> "Groestl256":
+        c = Groestl256.__new__(Groestl256)
+        c._buf = bytearray(self._buf)
+        c._h = list(self._h)
+        c._n_bytes = self._n_bytes
+        return c
+
+    def finalize(self) -> bytes:
+        tail = bytes(self._buf) + groestl256_pad(self._n_bytes).tobytes()
+        return _digest_cols(list(self._h), tail)
