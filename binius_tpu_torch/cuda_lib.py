@@ -33,8 +33,8 @@ launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "k1_tower_mul": (_P, _P, _P, _I, _L, _P),
-    "k2_transpose32": (_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _P),
+    "k1_tower_mul": (_P, _P, _P, _I, _L, _I, _I, _P),
+    "k2_transpose32": (_P, _P, _I, _L, _I, _P),
     "k3_ntt_local": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "k4_ntt_pair": (_P, _P, _I, _I, _I, _I, _P),
     "k5_groestl_leaf": (_P, _I, _I, _P, _P, _P),
@@ -115,14 +115,14 @@ def call(name: str, *args) -> None:
     launches[name] += 1
 
 
-def check(t: torch.Tensor, name: str, ndim: int | None = None) -> None:
-    """The wrappers' argument check: a contiguous, 8-byte aligned CUDA
-    tensor of int32 words."""
+def check(t: torch.Tensor, name: str, ndim: int | None = None, align: int = 8) -> None:
+    """The wrappers' argument check: a contiguous CUDA tensor of int32
+    words, aligned to `align` bytes."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.int32:
         raise ValueError(f"{name}: expected torch.int32, got {t.dtype}")
     if ndim is not None and t.ndim != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 8:
-        raise ValueError(f"{name}: expected a contiguous, 8-byte aligned tensor")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a contiguous, {align}-byte aligned tensor")

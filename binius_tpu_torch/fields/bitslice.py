@@ -3,12 +3,14 @@
 Bit ``b`` of 32 consecutive elements sits in one 32-bit word, so an element
 batch becomes ``2^level`` bit planes. The transform in and out is five
 masked-shift rounds per 32x32 bit block (Hacker's Delight 7-3). These are
-the plain versions of K2 (`bitslice_cuda.transpose32`), of K1
-(`mul_planes`) and of the Karatsuba network inside K3/K4; semantics are
-`binius_tpu/fields/bitslice.py`.
+the plain versions of K2 (`to_bitsliced`, `from_bitsliced`), of K1 (`mul`,
+packed in and out, around the network `mul_planes`) and of the Karatsuba
+network inside K3/K4; semantics are `binius_tpu/fields/bitslice.py`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -119,6 +121,38 @@ def _mul_stacked(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mul_planes(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Bitsliced multiply of planes [2^level, n_words]: the plain version of
-    K1 (`bitslice_cuda.mul_planes`), gate for gate `_mul_bs`."""
+    """Bitsliced multiply of planes [2^level, n_words] (either side may be
+    [2^level, 1], broadcast over the words), gate for gate `_mul_bs`."""
     return _mul_stacked(level, a, b)
+
+
+def _scalar_planes(level: int, x: torch.Tensor) -> torch.Tensor:
+    """The planes [2^level, 1] of one element: every word of a batch of
+    copies of x holds 0 or all ones in plane b, as bit b of x."""
+    bits = torch.arange(32, dtype=torch.int32, device=x.device)
+    return -((x.reshape(-1, 1) >> bits) & 1).reshape(-1, 1)[:1 << level]
+
+
+def mul(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Element-wise tower product at level 5..7, packed in and out: the
+    plain version of K1 (`bitslice_cuda.mul`),
+    from_bitsliced(mul_planes(to_bitsliced(a), to_bitsliced(b))). Batch
+    shapes broadcast; an operand of one element enters as its scalar planes,
+    and a batch that is not a multiple of 32 is zero-padded (zero words
+    absorb in the network)."""
+    batch = torch.broadcast_shapes(tower.batch_shape(level, a), tower.batch_shape(level, b))
+    shape = tower.elem_shape(level, batch)
+    n = math.prod(batch)
+    if n == 0:
+        return torch.zeros(shape, dtype=torch.int32, device=a.device)
+    pad = -n % 32
+
+    def planes(x):
+        if n > 1 and math.prod(tower.batch_shape(level, x)) == 1:
+            return _scalar_planes(level, x)
+        x = x.expand(shape).reshape(tower.elem_shape(level, (n,)))
+        if pad:
+            x = torch.cat([x, x.new_zeros(tower.elem_shape(level, (pad,)))])
+        return to_bitsliced(level, x)
+
+    return from_bitsliced(level, mul_planes(level, planes(a), planes(b)))[:n].reshape(shape)

@@ -12,8 +12,8 @@ Words are ``torch.int32`` holding the uint32 bits (see `device.py`).
 
 Multiplication: levels <= 3 gather from the B8 table; level 4 is one
 Karatsuba step over B8 products (`fastmul.mul_collect`'s gather
-semantics); levels 5..7 go to bit planes and back through
-`bitslice_cuda.mul` (K2, K1, K2 on the card; their plain versions for CPU
+semantics); levels 5..7 go through `bitslice_cuda.mul` (one K1 launch on
+packed data on the card, its plain version `bitslice.mul` for CPU
 tensors). Operand shapes broadcast.
 """
 

@@ -6,12 +6,15 @@ check them.
 
 1. Prints the card (nvidia-smi name and power limit) and the versions.
 2. Builds the kernels from binius_tpu_torch/csrc (nvcc, sm_90a) and times it.
+   The ptxas report (registers, spills; K1 and K2 must not spill), the
+   SASS instruction counts of K1, and the card figures the bounds use.
 3. One phase per kernel (K1-K6) at the shapes of the main path: the
    kernel's output against its plain PyTorch version on the same inputs
    (bit-equal: every operation is exact over GF(2)), the kernel's and the
    plain version's median time with CUDA events, and the kernel's bound.
-   K1 runs at levels 5, 6 and 7 on the opening's largest batch, 2^22
-   elements.
+   K1 (`bitslice_cuda.mul`, packed in and out, one launch) runs at levels
+   5, 6 and 7 on the opening's largest batch, 2^22 elements: full x full,
+   a scalar on either side, and a ragged 2^22 - 7 elements.
 4. The commit: the u32_add witness at 2^log_rows rows from --seed,
    committed with `piop.commit` on the card, its launches counted; its root
    against the same commit composed from the plain versions; at 2^16 rows
@@ -38,6 +41,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -57,11 +61,15 @@ GOLDEN_ROOT_16 = "5ba7dfef9aaac4e68954742aec76cae848d679dbe787f5a4957283dfacf088
 #   python scripts/port_golden_open.py --log-rows 16 --seed 0
 GOLDEN_OPEN_16 = "21afac7159130124a328928ff19e3590bcc3e50fc0cc6119002f22b17a6a0591"
 
-# Card peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W): HBM at
-# 3.35 TB/s; 32-bit integer and logic operations at no more than the
-# float32 issue rate outside the tensor cores, 67 TFLOP/s / 2 per FMA.
+# Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
+# 700 W). Logic: the CUDA C++ Programming Guide's throughput of 32-bit
+# bitwise AND/OR/XOR on compute capability 9.0, 64 results per clock per SM,
+# at the SM count and the maximum SM clock read from the card; one LOP3
+# instruction replaces at most two two-input gates, so the least instruction
+# count of a gate network is its gates / 2 (`card_rates`).
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12 / 2
+LOGIC_PER_CLOCK_PER_SM = 64
+GATES_PER_LOP3 = 2
 
 SECURITY_BITS = 100
 LOG_INV_RATE = 1
@@ -126,10 +134,60 @@ def ntt_ops(plan, stages) -> int:
 GROESTL_ROUND_OPS = 16 + 64 * 4 + 112
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+# two-input gates per word of one 32x32 bit transpose (5 rounds of 3)
+TRANSPOSE_GATES_PER_WORD = 15
+
+
+def card_rates() -> dict:
+    """The inputs of the operation bound, read from the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    return dict(sms=sms, max_sm_mhz=mhz, logic_per_clock_per_sm=LOGIC_PER_CLOCK_PER_SM,
+                gates_per_lop3=GATES_PER_LOP3,
+                gates_per_s=sms * mhz * 1e6 * LOGIC_PER_CLOCK_PER_SM * GATES_PER_LOP3)
+
+
+def bound_ms(n_bytes: int, n_ops: int, gates_per_s: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    t_ops = n_ops / gates_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_spills(log_text: str) -> dict:
+    """Spill bytes (stores + loads) per source file in the ptxas report."""
+    spills, src = {}, None
+    for line in log_text.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+            spills[src] = 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and src:
+            spills[src] += int(m.group(1)) + int(m.group(2))
+    return spills
+
+
+def sass_counts(tool: str, lib_path, pattern: str) -> dict:
+    """Static SASS counts per kernel whose name matches the regex `pattern`,
+    from `cuobjdump -sass` of the built library: instructions, LOP3s,
+    shared-memory loads and stores, shuffles."""
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if re.search(pattern, m.group(1)) else None
+            if cur:
+                counts[cur] = dict(instructions=0, lop3=0, lds_sts=0, shfl=0)
+        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            c = counts[cur]
+            c["instructions"] += 1
+            c["lop3"] += "LOP3" in line
+            c["lds_sts"] += bool(re.search(r"\b(LDS|STS)", line))
+            c["shfl"] += "SHFL" in line
+    return counts
 
 
 def instance(log_rows: int, seed: int, device) -> dict:
@@ -211,7 +269,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from binius_tpu_torch import cuda_lib
-    from binius_tpu_torch.fields import bitslice, bitslice_cuda
+    from binius_tpu_torch.fields import bitslice, bitslice_cuda, tower
     from binius_tpu_torch.hash import groestl_cuda
     from binius_tpu_torch.merkle.tree import MerkleTree, _MIN_DEVICE_ROWS
     from binius_tpu_torch.ntt import bitsliced_ntt as bn
@@ -234,11 +292,24 @@ def main() -> int:
     so = cuda_lib.build()
     cuda_lib.lib()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(so)}")
-    for line in (cuda_lib.BUILD / "ptxas.log").read_text().splitlines() if (
-            cuda_lib.BUILD / "ptxas.log").exists() else []:
+    ptxas = (cuda_lib.BUILD / "ptxas.log").read_text()
+    for line in ptxas.splitlines():
         if ("registers" in line or "spill" in line or "entry function" in line
                 or line.startswith("==")):
             log("  ptxas:", line.strip())
+    spills = ptxas_spills(ptxas)
+    log(f"ptxas spill bytes (stores + loads) per source: {spills}")
+    for src in ("tower_mul.cu", "transpose32.cu"):
+        if spills.get(src, 1):
+            raise AssertionError(f"{src}: ptxas reports spills or no report ({spills.get(src)})")
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    for fn, c in sass_counts(cuobjdump, so, r"mul\w*_kernel").items():
+        log(f"  sass: {fn}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    rates = card_rates()
+    log("bounds: HBM %.2f TB/s; logic %d SMs x %.0f MHz (max SM clock) x %d results/clock/SM x "
+        "%d gates per LOP3 = %.2f T two-input gates/s" % (
+            HBM_BYTES_PER_S / 1e12, rates["sms"], rates["max_sm_mhz"],
+            rates["logic_per_clock_per_sm"], rates["gates_per_lop3"], rates["gates_per_s"] / 1e12))
     phases.done("card and build")
 
     inst = instance(args.log_rows, args.seed, dev)
@@ -267,7 +338,7 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel and plain version differ (max |err| {err})")
         ms = cuda_ms(k_fn, args.reps, setup, inner)
         plain = cuda_ms(p_fn, args.reps, setup)
-        b, by = bound_ms(n_bytes, n_ops)
+        b, by = bound_ms(n_bytes, n_ops, rates["gates_per_s"])
         if row:
             rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                              launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -276,22 +347,40 @@ def main() -> int:
             f"(plain {plain:.3f} ms, bound {b:.4f} ms by {by})")
 
     # 3. kernel phases at the main path's shapes
-    # K1: the network at the opening's largest batch, 2^22 elements (the
-    # transparents' eq scaling and the sumcheck's first rounds); the row is
-    # level 7 (B128), where most of the opening's products are
+    # K1: the packed product at the opening's largest batch, 2^22 elements
+    # (the transparents' eq scaling and the sumcheck's first rounds), as the
+    # opening calls it: both operands full, or a scalar on either side
+    # (extrapolate_line, the FRI fold, eq expansion), and one ragged batch.
+    # The row is level 7 (B128) full x full, where most of the opening's
+    # products are. Bound: the bytes of the full operands and the result,
+    # and the network's gates plus 15 per word of each transposed operand
+    # and of the result.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    k1_words = 1 << 17
+    n1 = 1 << 22
     for level in (5, 6, 7):
-        a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << level, k1_words), dtype=torch.int32,
-                              device=dev, generator=gen) for _ in range(2))
-        report("k1_tower_mul", "binius_tpu_torch/csrc/tower_mul.cu",
-               "binius_tpu/fields/bitslice_pallas.py:37",
-               bitslice_cuda.mul_planes(level, a, b), bitslice.mul_planes(level, a, b),
-               lambda _: bitslice_cuda.mul_planes(level, a, b),
-               lambda _: bitslice.mul_planes(level, a, b),
-               n_bytes=3 * a.numel() * 4, n_ops=mul_gates(level) * k1_words,
-               label=f"level {level}", row=level == 7, inner=20)
-        del a, b
+        limbs = tower.n_limbs(level)
+        a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, tower.elem_shape(level, (n1,)),
+                              dtype=torch.int32, device=dev, generator=gen) for _ in range(2))
+        cases = (("full x full", a, b), ("scalar x full", a[5], b), ("full x scalar", a, b[9]),
+                 ("ragged full x full", a[:n1 - 7], b[7:]))
+        for label, x, y in cases:
+            n = max(tower.batch_shape(level, x) + tower.batch_shape(level, y))
+            full = sum(len(tower.batch_shape(level, t)) == 1 for t in (x, y))
+            cuda_lib.reset_launches()
+            got = bitslice_cuda.mul(level, x, y)
+            torch.cuda.synchronize()
+            if dict(cuda_lib.launches) != {**dict.fromkeys(cuda_lib.KERNELS, 0), "k1_tower_mul": 1}:
+                raise AssertionError(f"K1 level {level} {label}: launches {cuda_lib.launches}")
+            report("k1_tower_mul", "binius_tpu_torch/csrc/tower_mul.cu",
+                   "binius_tpu/fields/bitslice_pallas.py:37",
+                   got, bitslice.mul(level, x, y),
+                   lambda _: bitslice_cuda.mul(level, x, y), lambda _: bitslice.mul(level, x, y),
+                   n_bytes=((full + 1) * n + 2 - full) * limbs * 4,
+                   n_ops=-(-n // 32) * mul_gates(level)
+                   + (full + 1) * n * limbs * TRANSPOSE_GATES_PER_WORD,
+                   label=f"level {level} {label}", row=level == 7 and label == "full x full",
+                   inner=20)
+        del a, b, got
     phases.done("K1")
 
     # K2: to_bitsliced and from_bitsliced around the NTT (2 launches)
@@ -306,7 +395,7 @@ def main() -> int:
            [planes_k, back_k], [planes_p, back_p],
            lambda _: bitslice_cuda.from_bitsliced(7, bitslice_cuda.to_bitsliced(7, rep)),
            lambda _: bitslice.from_bitsliced(7, bitslice.to_bitsliced(7, rep)),
-           n_bytes=2 * 2 * rep.numel() * 4, n_ops=2 * rep.numel() * 15)
+           n_bytes=2 * 2 * rep.numel() * 4, n_ops=2 * rep.numel() * TRANSPOSE_GATES_PER_WORD)
 
     # K4: the pair stages, one launch each
     def pairs_k(x):
@@ -457,6 +546,8 @@ def main() -> int:
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if counts["k2_transpose32"] != 2:  # the commit's NTT in and out; tower.mul never
+        raise AssertionError(f"K2 launched {counts['k2_transpose32']} times, not 2")
     for r in rows:
         r["launches"] = counts[r["name"]]
     verify_opening(inst, proof)

@@ -1,8 +1,9 @@
 """binius_tpu_torch tower arithmetic (mul, square, invert, mul_alpha,
 scale_subfield) at every level against the JAX package's `fields/tower.py`
-on the CPU, and the plain version of K1 (`bitslice.mul_planes`) against
-the JAX package's `bitslice.mul_planes`, bit-exact, on identical numpy
-inputs. The JAX calls that are cheaper eagerly than compiled run under
+on the CPU, the gate network (`bitslice.mul_planes`) against the JAX
+package's `bitslice.mul_planes`, and the plain version of K1 (`bitslice.mul`,
+packed in and out) against the JAX package's `scalar.mul` and `tower.mul`,
+bit-exact, on identical numpy inputs. The JAX calls that are cheaper eagerly than compiled run under
 `jax.disable_jit`."""
 
 import jax
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from binius_tpu.fields import bitslice as jbitslice
+from binius_tpu.fields import scalar as jscalar
 from binius_tpu.fields import tower as jtower
 from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.fields import bitslice, bitslice_cuda, scalar, tower
@@ -60,15 +62,31 @@ def test_tower_ops_match_reference(level):
 
 @pytest.mark.parametrize("level", [5, 6, 7])
 def test_mul_planes_matches_reference(level):
-    """The plain version of K1 on a few words; the JAX function is not
-    jitted, so its gate network runs eagerly."""
+    """K1's gate network on a few words; the JAX function is not jitted, so
+    its gate network runs eagerly."""
     a, b = _elems(5, level, (1 << level) * 3), _elems(5, level + 9, (1 << level) * 3)
     a, b = a.reshape(1 << level, 3), b.reshape(1 << level, 3)
     want = jbitslice.mul_planes(level, jnp.asarray(a), jnp.asarray(b))
     assert _same(bitslice.mul_planes(level, from_reference(a, "cpu"), from_reference(b, "cpu")),
                  want)
-    assert _same(bitslice_cuda.mul_planes(level, from_reference(a, "cpu"),
-                                          from_reference(b, "cpu")), want)
+
+
+@pytest.mark.parametrize("level", [5, 6, 7])
+@pytest.mark.parametrize("scalar_side", [None, 0, 1])
+def test_packed_mul_matches_reference(level, scalar_side):
+    """The plain version of K1 (`bitslice.mul`, and `bitslice_cuda.mul` on
+    CPU tensors) on 300 elements, not a multiple of 32: full x full, and a
+    one-element operand on either side, which enters as scalar planes."""
+    ops = [_elems(level, level + 20, 300), _elems(level, level + 30, 300)]
+    if scalar_side is not None:
+        ops[scalar_side] = ops[scalar_side][7]
+    ta, tb = (from_reference(np.asarray(x), "cpu") for x in ops)
+    got = bitslice.mul(level, ta, tb)
+    assert torch.equal(bitslice_cuda.mul(level, ta, tb), got)
+    assert _same(got, jtower.mul(level, jnp.asarray(ops[0]), jnp.asarray(ops[1])))
+    xs, ys = (jtower.to_ints(level, x.reshape(tower.elem_shape(level, (-1,)))) for x in ops)
+    xs, ys = xs * (300 // len(xs)), ys * (300 // len(ys))
+    assert tower.to_ints(level, got) == [jscalar.mul(level, x, y) for x, y in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("level", [5, 6, 7])
