@@ -39,14 +39,18 @@
 //  4. Store: the warp transpose turns the result planes back into packed
 //     elements, written with one vector store per lane.
 // The B32 network holds a thread at 168 registers, so an SM holds 12
-// warps. B32 and B64 (`mul_kernel`) take one tile per block of 1 or 3
-// warps, 12 or 4 blocks to an SM, every warp in every step; the blocks on
-// an SM overlap each other's steps. B128 (`mul128_kernel`) needs 9 product
-// warps per tile, so one block per SM loops over tiles with 3 more warps
-// that only load: they stage tile t+2's packed operands in shared memory
-// with cp.async and turn tile t+1's into planes while the product warps
-// run tile t's steps 2-4 (B128 shared memory: 172,160 bytes). A B128 block
-// of 9 warps that did every step of one tile was slower on the card.
+// warps. `mul_kernel` takes one tile per block of 1, 3 or 9 warps (B32,
+// B64, B128), 12, 4 or 1 blocks to an SM, every warp in every step; the
+// blocks on an SM overlap each other's steps, except at B128, where a
+// block is alone on its SM and its loads and transposes leave the issue
+// slots idle. So a large B128 batch runs `mul128_kernel` instead: one
+// block per SM loops over tiles with 3 more warps that only load: they
+// stage tile t+2's packed operands in shared memory with cp.async and turn
+// tile t+1's into planes while the 9 product warps run tile t's steps 2-4
+// (172,160 bytes of shared memory). Its pipeline fills only when each SM
+// has several tiles; below that `mul_kernel<7>` is faster. The caller
+// picks (`persistent`), from the sizes at which each was faster on the
+// card (binius_tpu_torch/fields/bitslice_cuda.py, B128_PERSISTENT_FROM).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,21 +68,20 @@ using tower_bs::Bs;
 constexpr int kCols = 32;      // word columns per block
 constexpr int kS = kCols + 1;  // plane stride in shared memory
 
-// B32 and B64: one warp per B32 product, every warp in every step.
+// `mul_kernel`: one warp per B32 product, every warp in every step.
 template <int L>
 struct Level {
-  static_assert(L == 5 || L == 6, "B128 runs in mul128_kernel");
   static constexpr int LIMBS = 1 << (L - 5);
-  static constexpr int NB = 32 * LIMBS;              // bit planes
-  static constexpr int NP = L == 5 ? 1 : 3;          // B32 products = warps
+  static constexpr int NB = 32 * LIMBS;                   // bit planes
+  static constexpr int NP = L == 5 ? 1 : L == 6 ? 3 : 9;  // B32 products = warps
   static constexpr int THREADS = 32 * NP;
-  static constexpr int MIN_BLOCKS = L == 5 ? 12 : 4;
+  static constexpr int MIN_BLOCKS = L == 5 ? 12 : L == 6 ? 4 : 1;
   static constexpr int SMEM_BYTES = (2 * NB + 32 * NP) * kS * 4;
 };
 
-// B128: 9 product warps and 3 mover warps; shared memory for two tiles of
-// operand planes, the 9 B32 products (later the result) and the stage of
-// a tile's packed operands.
+// `mul128_kernel`: 9 product warps and 3 mover warps; shared memory for
+// two tiles of operand planes, the 9 B32 products (later the result) and
+// the stage of a tile's packed operands.
 constexpr int kMovers = 3;
 constexpr int kThreads128 = 32 * (9 + kMovers);
 constexpr int kStageWords = 2 * 32 * kCols * 4;  // both operands of a tile, packed
@@ -278,7 +281,7 @@ __device__ __forceinline__ void product(const uint32_t* sa, int a_scalar, const 
   for (int k = 0; k < 32; ++k) sz[(32 * p + k) * kS + c] = z[k];
 }
 
-// B32 and B64: one tile per block, one warp per product; every warp moves.
+// One tile per block, one warp per product; every warp moves.
 template <int L>
 __global__ void __launch_bounds__(Level<L>::THREADS, Level<L>::MIN_BLOCKS)
     mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
@@ -287,7 +290,7 @@ __global__ void __launch_bounds__(Level<L>::THREADS, Level<L>::MIN_BLOCKS)
   using Lv = Level<L>;
   using Mv = Mover<Lv::LIMBS, Lv::NP, (kCols + Lv::NP - 1) / Lv::NP>;
   extern __shared__ uint32_t sm[];
-  uint32_t* sa = sm;                  // operand a, later the B64 result
+  uint32_t* sa = sm;                  // operand a, later the B64 products
   uint32_t* sb = sm + Lv::NB * kS;    // operand b
   uint32_t* sz = sb + Lv::NB * kS;    // the B32 products
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -303,6 +306,15 @@ __global__ void __launch_bounds__(Level<L>::THREADS, Level<L>::MIN_BLOCKS)
     if (warp < 2) combine<1>(sz, sz + 32 * kS, sz + 64 * kS, warp, lane, sa);
     __syncthreads();
     so = sa;
+  }
+  if constexpr (L == 7) {  // 3. the B64 and then the B128 Karatsuba steps
+    if (warp < 6) {  // B64 product s7 = warp / 2, quarter warp % 2, into sa and sb
+      const uint32_t* z = sz + (warp / 2) * 96 * kS;
+      combine<1>(z, z + 32 * kS, z + 64 * kS, warp % 2, lane, sa + (warp / 2) * 64 * kS);
+    }
+    __syncthreads();
+    if (warp < 4) combine<2>(sa, sa + 64 * kS, sa + 128 * kS, warp, lane, sz);
+    __syncthreads();
   }
   Mv::store(so, out, n, col0, warp, tr);  // 4.
 }
@@ -409,29 +421,31 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
 
 template <int L>
 int launch(const uint32_t* a, const uint32_t* b, uint32_t* out, long long n,
-           int a_scalar, int b_scalar, cudaStream_t s) {
+           int a_scalar, int b_scalar, int persistent, cudaStream_t s) {
   const long long tiles = ((n + 31) / 32 + kCols - 1) / kCols;
   if constexpr (L == 7) {
-    static bool smem_set = false;
-    static int sms = 0;
-    cudaError_t e = allow_smem(mul128_kernel, kSmem128, smem_set);
-    if (e == cudaSuccess && !sms) {
-      int dev = 0;
-      e = cudaGetDevice(&dev);
-      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (persistent) {
+      static bool smem_set = false;
+      static int sms = 0;
+      cudaError_t e = allow_smem(mul128_kernel, kSmem128, smem_set);
+      if (e == cudaSuccess && !sms) {
+        int dev = 0;
+        e = cudaGetDevice(&dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      }
+      if (e != cudaSuccess) return (int)e;
+      const long long blocks = tiles < sms ? tiles : sms;  // one per SM, looping over tiles
+      mul128_kernel<<<(unsigned)blocks, kThreads128, kSmem128, s>>>(a, b, out, n, a_scalar,
+                                                                    b_scalar);
+      return (int)cudaGetLastError();
     }
-    if (e != cudaSuccess) return (int)e;
-    const long long blocks = tiles < sms ? tiles : sms;  // one per SM, looping over tiles
-    mul128_kernel<<<(unsigned)blocks, kThreads128, kSmem128, s>>>(a, b, out, n, a_scalar,
-                                                                  b_scalar);
-  } else {
-    using Lv = Level<L>;
-    static bool smem_set = false;
-    const cudaError_t e = allow_smem(mul_kernel<L>, Lv::SMEM_BYTES, smem_set);
-    if (e != cudaSuccess) return (int)e;
-    mul_kernel<L><<<(unsigned)tiles, Lv::THREADS, Lv::SMEM_BYTES, s>>>(a, b, out, n, a_scalar,
-                                                                      b_scalar);
   }
+  using Lv = Level<L>;
+  static bool smem_set = false;
+  const cudaError_t e = allow_smem(mul_kernel<L>, Lv::SMEM_BYTES, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  mul_kernel<L><<<(unsigned)tiles, Lv::THREADS, Lv::SMEM_BYTES, s>>>(a, b, out, n, a_scalar,
+                                                                    b_scalar);
   return (int)cudaGetLastError();
 }
 
@@ -439,16 +453,17 @@ int launch(const uint32_t* a, const uint32_t* b, uint32_t* out, long long n,
 
 // out[i] = a[i] * b[i] for i < n at `level` (5..7), packed (n, limbs)
 // uint32; an operand with its flag set is one element, used for every i.
+// `persistent` (level 7 only) runs mul128_kernel instead of mul_kernel<7>.
 extern "C" int k1_tower_mul(const void* a, const void* b, void* out, int level,
-                            long long n, int a_scalar, int b_scalar,
+                            long long n, int a_scalar, int b_scalar, int persistent,
                             void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const auto* pa = (const uint32_t*)a;
   const auto* pb = (const uint32_t*)b;
   auto* po = (uint32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (level == 5) return launch<5>(pa, pb, po, n, a_scalar, b_scalar, s);
-  if (level == 6) return launch<6>(pa, pb, po, n, a_scalar, b_scalar, s);
-  if (level == 7) return launch<7>(pa, pb, po, n, a_scalar, b_scalar, s);
+  if (level == 5) return launch<5>(pa, pb, po, n, a_scalar, b_scalar, 0, s);
+  if (level == 6) return launch<6>(pa, pb, po, n, a_scalar, b_scalar, 0, s);
+  if (level == 7) return launch<7>(pa, pb, po, n, a_scalar, b_scalar, persistent, s);
   return (int)cudaErrorInvalidValue;
 }

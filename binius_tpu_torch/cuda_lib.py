@@ -33,7 +33,7 @@ launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "k1_tower_mul": (_P, _P, _P, _I, _L, _I, _I, _P),
+    "k1_tower_mul": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
     "k2_transpose32": (_P, _P, _I, _L, _I, _P),
     "k3_ntt_local": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "k4_ntt_pair": (_P, _P, _I, _I, _I, _I, _P),

@@ -19,6 +19,14 @@ import torch
 from .. import cuda_lib
 from . import bitslice, tower
 
+# B128 products of at least this many elements run K1's persistent kernel
+# (`mul128_kernel`: one block per SM looping over tiles, the next tiles'
+# loads and transposes overlapping the network); smaller ones run one block
+# per tile (`mul_kernel<7>`), which has no pipeline to fill. Set from the
+# device time of each at the opening's sizes (scripts/profile_opening.py
+# --k1-designs, on an H100).
+B128_PERSISTENT_FROM = 1 << 20
+
 
 def _packed(x: torch.Tensor, align: int) -> torch.Tensor:
     """x, contiguous and aligned to its element's vector access."""
@@ -88,6 +96,7 @@ def mul(level: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         cuda_lib.check(x, name, align=align)
         ops.append(x)
         scalar.append(int(one))
+    persistent = int(level == 7 and n >= B128_PERSISTENT_FROM)
     cuda_lib.call("k1_tower_mul", ops[0].data_ptr(), ops[1].data_ptr(), out.data_ptr(), level, n,
-                  *scalar)
+                  *scalar, persistent)
     return out

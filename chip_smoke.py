@@ -13,8 +13,9 @@ check them.
    (bit-equal: every operation is exact over GF(2)), the kernel's and the
    plain version's median time with CUDA events, and the kernel's bound.
    K1 (`bitslice_cuda.mul`, packed in and out, one launch) runs at levels
-   5, 6 and 7 on the opening's largest batch, 2^22 elements: full x full,
-   a scalar on either side, and a ragged 2^22 - 7 elements.
+   5, 6 and 7 on 2^22 elements: full x full, a scalar on either side, and
+   a ragged 2^22 - 7 elements; B128 also at a sixteenth of the size from
+   which it takes its persistent kernel, the same four cases.
 4. The commit: the u32_add witness at 2^log_rows rows from --seed,
    committed with `piop.commit` on the card, its launches counted; its root
    against the same commit composed from the plain versions; at 2^16 rows
@@ -347,22 +348,26 @@ def main() -> int:
             f"(plain {plain:.3f} ms, bound {b:.4f} ms by {by})")
 
     # 3. kernel phases at the main path's shapes
-    # K1: the packed product at the opening's largest batch, 2^22 elements
-    # (the transparents' eq scaling and the sumcheck's first rounds), as the
-    # opening calls it: both operands full, or a scalar on either side
-    # (extrapolate_line, the FRI fold, eq expansion), and one ragged batch.
-    # The row is level 7 (B128) full x full, where most of the opening's
-    # products are. Bound: the bytes of the full operands and the result,
-    # and the network's gates plus 15 per word of each transposed operand
-    # and of the result.
+    # K1: the packed product at 2^22 elements (the transparents' eq scaling
+    # and the sumcheck's first rounds), as the opening calls it: both
+    # operands full, or a scalar on either side (extrapolate_line, the FRI
+    # fold, eq expansion), and one ragged batch. B128 runs two kernels by
+    # batch size (`bitslice_cuda.B128_PERSISTENT_FROM`): 2^22 elements take
+    # the persistent one, and the same cases at a sixteenth of that size
+    # take the one-tile-per-block one, as the opening's later rounds do.
+    # The row is level 7 (B128) full x full at 2^22, where most of the
+    # opening's product time is. Bound: the bytes of the full operands and
+    # the result, and the network's gates plus 15 per word of each
+    # transposed operand and of the result.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n1 = 1 << 22
-    for level in (5, 6, 7):
+    n_tile = bitslice_cuda.B128_PERSISTENT_FROM >> 4
+    for level, n_full in ((5, n1), (6, n1), (7, n1), (7, n_tile)):
         limbs = tower.n_limbs(level)
-        a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, tower.elem_shape(level, (n1,)),
+        a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, tower.elem_shape(level, (n_full,)),
                               dtype=torch.int32, device=dev, generator=gen) for _ in range(2))
         cases = (("full x full", a, b), ("scalar x full", a[5], b), ("full x scalar", a, b[9]),
-                 ("ragged full x full", a[:n1 - 7], b[7:]))
+                 ("ragged full x full", a[:n_full - 7], b[7:]))
         for label, x, y in cases:
             n = max(tower.batch_shape(level, x) + tower.batch_shape(level, y))
             full = sum(len(tower.batch_shape(level, t)) == 1 for t in (x, y))
@@ -378,8 +383,8 @@ def main() -> int:
                    n_bytes=((full + 1) * n + 2 - full) * limbs * 4,
                    n_ops=-(-n // 32) * mul_gates(level)
                    + (full + 1) * n * limbs * TRANSPOSE_GATES_PER_WORD,
-                   label=f"level {level} {label}", row=level == 7 and label == "full x full",
-                   inner=20)
+                   label=f"level {level} 2^{n_full.bit_length() - 1} {label}",
+                   row=level == 7 and n_full == n1 and label == "full x full", inner=20)
         del a, b, got
     phases.done("K1")
 

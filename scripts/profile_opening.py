@@ -1,6 +1,6 @@
 """Profile one warm opening of the u32_add commitment on the card.
 
-    python3 scripts/profile_opening.py [--log-rows 22] [--seed 0]
+    python3 scripts/profile_opening.py [--log-rows 22] [--seed 0] [--k1-designs]
 
 Builds the instance of `chip_smoke.py` (the u32_add witness, one claim per
 column at the point drawn after it), runs one opening as a warm-up, then
@@ -9,13 +9,21 @@ one under `torch.profiler` (CPU and CUDA activities). Prints the card
 around work that ends in `torch.cuda.synchronize()`), the device time by
 kernel name (sum, calls, mean), the sum over all device kernels and the
 device's idle share of the wall time (one stream, so kernels do not
-overlap), and the port's launch counts for the same opening.
+overlap), the port's launch counts for the same opening, and K1's
+launches by level and batch size with their device time.
+
+--k1-designs profiles two more openings, one with every B128 product on
+K1's one-tile-per-block kernel and one with every B128 product on its
+persistent kernel (`bitslice_cuda.B128_PERSISTENT_FROM` set to never and
+to always), and prints K1's device time by size for all three.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import os
+import re
 import subprocess
 import sys
 import time
@@ -28,6 +36,7 @@ def main() -> int:
     ap.add_argument("--log-rows", type=int, default=22)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--k1-designs", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_opening: no CUDA device", file=sys.stderr)
@@ -35,21 +44,54 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
     from binius_tpu_torch import cuda_lib
+    from binius_tpu_torch.fields import bitslice_cuda
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     inst = chip_smoke.instance(args.log_rows, args.seed, torch.device("cuda"))
-    chip_smoke.open_commitment(inst)   # warm-up: build, plans, tables
-    torch.cuda.synchronize()
-    cuda_lib.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        chip_smoke.open_commitment(inst)
+
+    # K1's launches in order, (level, n, a_scalar, b_scalar, persistent)
+    k1_calls = []
+    launch = cuda_lib.call
+
+    def recording_call(name, *args):
+        if name == "k1_tower_mul":
+            k1_calls.append(args[3:])
+        launch(name, *args)
+
+    cuda_lib.call = recording_call
+
+    def profiled_opening():
+        chip_smoke.open_commitment(inst)   # warm-up: build, plans, tables
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(cuda_lib.launches)
+        cuda_lib.reset_launches()
+        k1_calls.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            chip_smoke.open_commitment(inst)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof, wall_ms, dict(cuda_lib.launches), list(k1_calls)
+
+    def k1_by_size(prof, calls):
+        """{(level, log2 n): [launches, device us]} from K1's device events,
+        matched in order to its recorded launches."""
+        evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                      and re.search(r"\bmul(128)?_kernel\b", ev.name)),
+                     key=lambda ev: ev.time_range.start)
+        if len(evs) != len(calls):
+            print(f"K1: {len(evs)} device events for {len(calls)} launches; not matched")
+            return {}
+        sizes = collections.defaultdict(lambda: [0, 0.0])
+        for ev, (level, n, *_) in zip(evs, calls):
+            row = sizes[(level, n.bit_length() - 1)]
+            row[0] += 1
+            row[1] += ev.time_range.elapsed_us()
+        return sizes
+
+    prof, wall_ms, launches, calls = profiled_opening()
 
     # the device's own events (kernels, copies, fills), not the host ops
     # that launched them
@@ -63,6 +105,26 @@ def main() -> int:
     print(f"{'device ms':>10} {'calls':>6} {'mean us':>9}  kernel")
     for ms, count, key in kernels[:args.top]:
         print(f"{ms:10.3f} {count:6d} {ms / count * 1e3:9.2f}  {key[:110]}")
+
+    runs = {f"as run (B128 persistent from {bitslice_cuda.B128_PERSISTENT_FROM})":
+            k1_by_size(prof, calls)}
+    if args.k1_designs:
+        split = bitslice_cuda.B128_PERSISTENT_FROM
+        for label, start in (("B128 all one tile per block", 1 << 62),
+                             ("B128 all persistent", 0)):
+            bitslice_cuda.B128_PERSISTENT_FROM = start
+            prof, wall_ms, _, calls = profiled_opening()
+            runs[label] = k1_by_size(prof, calls)
+        bitslice_cuda.B128_PERSISTENT_FROM = split
+    keys = sorted({k for sizes in runs.values() for k in sizes})
+    print("K1 device us by level and batch size 2^k <= n < 2^(k+1) (launches):")
+    print(f"{'level':>5} {'k':>3}  " + "  ".join(f"{label:>30}" for label in runs))
+    for key in keys:
+        print(f"{key[0]:5d} {key[1]:3d}  " + "  ".join(
+            f"{sizes[key][1]:22.2f} ({sizes[key][0]:5d})" if key in sizes else f"{'-':>30}"
+            for sizes in runs.values()))
+    print(f"{'K1 ms':>11}  " + "  ".join(
+        f"{sum(us for _, us in sizes.values()) / 1e3:30.4f}" for sizes in runs.values()))
     return 0
 
 
