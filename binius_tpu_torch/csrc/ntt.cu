@@ -2,8 +2,8 @@
 //
 // K3 replaces `_local_kernel` (binius_tpu/ntt/bitsliced_ntt.py, launched by
 // `_pallas_local`): every stage whose pair distance fits one tile, fused.
-// K4 replaces `_pair_kernel` (launched by `_pallas_pair`): one stage whose
-// word distance is too large for a tile.
+// K4 replaces `_pair_kernel` (launched by `_pallas_pair`): a stage whose
+// word distance is too large for a tile (a cross stage).
 //
 // Data are bit planes [P, W] (plane b holds bit b of 32 consecutive
 // elements per word). A forward butterfly is u ^= t*v; v ^= u, the inverse
@@ -20,11 +20,21 @@
 // Bound on the H100: per word pair, group and stage the network costs about
 // 1,550 32-bit operations (1,388 gates of the B32 Karatsuba network, the
 // mask expansion and the butterfly XORs), while a stage that passes through
-// HBM moves 8 bytes per word of each plane. K3 keeps a 1024-word tile of one
-// group (32 planes x 4 KB = 128 KB) in shared memory and runs all of its
-// stages there, so they cost one HBM read and one write together and the
-// operations bound it; K4 is one HBM pass per stage, each thread owning one
-// (u, v) word pair of one group, and the bytes bound it.
+// HBM moves 8 bytes per word of each plane. So every kernel here keeps a
+// tile of one group in shared memory, runs several stages on it and passes
+// through HBM once: the operations bound them.
+//  * K3 holds 1024 consecutive words of 32 planes (128 KB) and runs every
+//    stage whose pair distance lies inside it.
+//  * K4 runs a run of up to 7 consecutive cross stages, at word distances
+//    2^lo_bit ... 2^(lo_bit + s - 1). Those stages pair words that differ
+//    only in index bits lo_bit .. lo_bit + s - 1, so for fixed other bits
+//    the 2^s words they touch form a closed set. A block takes, for one
+//    group, one value of the bits above and 2^(10 - s) consecutive values
+//    of the bits below (8 at s = 7: a 32-byte sector per plane row), the
+//    32 x 1024 words (128 KB, a strided 3-D box, copied in with cp.async),
+//    runs the s stages there and writes back once. The caller groups a plan's
+//    cross stages into runs (bitsliced_ntt._cross_runs): the 2^22-row
+//    commit's 7 cross stages are one launch, one HBM pass.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -162,16 +172,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K4. Grid (ceil(n_words / 2 / threads), groups); one thread per word pair.
+// 16 bytes from global to shared memory without passing through registers
+__device__ __forceinline__ void copy16_async(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+constexpr int kMaxCrossStages = 7;
+constexpr int kCrossWords = 1 << 15;  // tile words per group: 32 planes x 1024 = 128 KB
+
+// K4. Tile [32 planes][2^s words of the run's bits][cols low words], where
+// cols = 2^15 / 32 / 2^s (8 at s = 7: a 32-byte sector per plane row), so
+// a block always holds 512 word pairs per stage, 2 per thread. Grid
+// (n_words / 2^(lo_bit + s) * 2^lo_bit / cols, groups). `tw` holds the
+// run's twiddle rows in execution order; a forward run takes its highest
+// bit first, an inverse run its lowest.
 template <bool INV>
-__global__ void __launch_bounds__(kThreads)
-    ntt_pair_kernel(uint32_t* __restrict__ planes,
-                    const uint32_t* __restrict__ tw, int n_words, int dw) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n_words / 2) return;
-  const long long wu = (k / dw) * 2 * dw + (k % dw);
-  uint32_t* base = planes + (long long)blockIdx.y * 32 * n_words;
-  butterfly_pair<INV>(base + wu, base + wu + dw, n_words, tw[wu]);
+__global__ void __launch_bounds__(kThreads, 1)
+    ntt_cross_kernel(uint32_t* __restrict__ planes, const uint32_t* __restrict__ tw,
+                     int n_words, int lo_bit, int n_stages, int cols) {
+  extern __shared__ uint32_t sm[];
+  const int mid = 1 << n_stages;
+  const int row = mid * cols;  // tile words per plane
+  const int quads = cols / 4;  // 16-byte copies per plane row
+  const long long chunks = (1ll << lo_bit) / cols;
+  const long long w0 = ((long long)(blockIdx.x / chunks) << (lo_bit + n_stages)) +
+                       (long long)(blockIdx.x % chunks) * cols;
+  uint32_t* base = planes + (long long)blockIdx.y * 32 * n_words + w0;
+  // (plane, word of the run's bits, quad of the row) -> 16 bytes
+  auto gaddr = [&](int i) {
+    return base + (long long)(i / (quads * mid)) * n_words +
+           ((long long)((i / quads) & (mid - 1)) << lo_bit) + 4 * (i % quads);
+  };
+  for (int i = threadIdx.x; i < 8 * row; i += blockDim.x) copy16_async(sm + 4 * i, gaddr(i));
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  for (int k = 0; k < n_stages; ++k) {
+    const int b = INV ? k : n_stages - 1 - k;  // the stage's bit in the tile
+    const uint32_t* twr = tw + (long long)k * n_words + w0;
+    for (int q = threadIdx.x; q < row / 2; q += blockDim.x) {
+      const int col = q % cols, pair = q / cols;
+      const int mu = ((pair >> b) << (b + 1)) | (pair & ((1 << b) - 1));
+      butterfly_pair<INV>(sm + mu * cols + col, sm + (mu + (1 << b)) * cols + col, row,
+                          twr[((long long)mu << lo_bit) + col]);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < 8 * row; i += blockDim.x)
+    *reinterpret_cast<uint4*>(gaddr(i)) = *reinterpret_cast<const uint4*>(sm + 4 * i);
 }
 
 }  // namespace
@@ -202,15 +251,23 @@ extern "C" int k3_ntt_local(void* planes, const void* tw, const void* meta,
   return (int)cudaGetLastError();
 }
 
-extern "C" int k4_ntt_pair(void* planes, const void* tw, int n_words,
-                           int groups, int dw, int inverse, void* stream) {
-  if (dw < 1 || n_words % (2 * dw)) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((n_words / 2 + kThreads - 1) / kThreads), groups);
-  if (inverse)
-    ntt_pair_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)planes, (const uint32_t*)tw, n_words, dw);
-  else
-    ntt_pair_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)planes, (const uint32_t*)tw, n_words, dw);
+// Stages at word distances 2^lo_bit .. 2^(lo_bit + n_stages - 1), in
+// execution order, fused in one pass.
+extern "C" int k4_ntt_cross(void* planes, const void* tw, int n_words, int groups,
+                            int lo_bit, int n_stages, int inverse, void* stream) {
+  if (n_stages < 1 || n_stages > kMaxCrossStages || lo_bit < 0 || lo_bit > 30 ||
+      n_words % (1ll << (lo_bit + n_stages)))
+    return (int)cudaErrorInvalidValue;
+  const int cols = (kCrossWords / 32 >> n_stages) < (1 << lo_bit) ? kCrossWords / 32 >> n_stages
+                                                                  : 1 << lo_bit;
+  if (cols < 4) return (int)cudaErrorInvalidValue;
+  const int smem = 32 * (cols << n_stages) * (int)sizeof(uint32_t);
+  const long long blocks = (long long)n_words / cols >> n_stages;
+  dim3 grid((unsigned)blocks, groups);
+  auto kernel = inverse ? ntt_cross_kernel<true> : ntt_cross_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (uint32_t*)planes, (const uint32_t*)tw, n_words, lo_bit, n_stages, cols);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,7 @@ BUILD = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("k1_tower_mul", "k2_transpose32", "k3_ntt_local", "k4_ntt_pair",
+KERNELS = ("k1_tower_mul", "k2_transpose32", "k3_ntt_local", "k4_ntt_cross",
            "k5_groestl_leaf", "k6_groestl_pairs")
 launches = dict.fromkeys(KERNELS, 0)
 
@@ -36,8 +36,8 @@ _SIGNATURES = {
     "k1_tower_mul": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
     "k2_transpose32": (_P, _P, _I, _L, _I, _P),
     "k3_ntt_local": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "k4_ntt_pair": (_P, _P, _I, _I, _I, _I, _P),
-    "k5_groestl_leaf": (_P, _I, _I, _P, _P, _P),
+    "k4_ntt_cross": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "k5_groestl_leaf": (_P, _I, _I, _P, _P, _I, _P),
     "k6_groestl_pairs": (_P, _I, _P, _P, _P),
 }
 

@@ -3,9 +3,10 @@
 Counterpart of `binius_tpu/hash/groestl_pallas.py` (`leaf_hash_kernel`,
 `pairs_kernel`, `tree_levels`). Output contract as there: (n, 8) int32
 digests, word j = digest bytes 4j..4j+3 little-endian. The kernels
-(`csrc/groestl.cu`) run the T-table permutation, one thread per leaf or
-pair. On a CPU tensor each wrapper takes the plain version in `groestl`;
-on a CUDA tensor it launches its kernel or raises.
+(`csrc/groestl.cu`) run the T-table permutation: K6 one thread per pair,
+K5 one thread per leaf or, below `LANES_BELOW` leaves, 16 cooperating
+lanes per leaf. On a CPU tensor each wrapper takes the plain version in
+`groestl`; on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -15,6 +16,13 @@ import torch
 
 from .. import cuda_lib
 from . import groestl
+
+# K5 runs 16 lanes per leaf (`leaf_lanes_kernel`) below this many leaves and
+# one thread per leaf (`leaf_kernel`) from it on: lane groups shorten each
+# leaf's chain and spread few leaves over the card, one thread per leaf
+# spends the fewest lookups per leaf (times of both at the opening's four
+# shapes in PERF.md).
+LANES_BELOW = 1 << 13
 
 _TABLES: dict = {}
 
@@ -53,7 +61,7 @@ def leaf_hash_kernel(cw: torch.Tensor, log_coset: int, blob_len: int) -> torch.T
                          f"into 2^{log_coset}-element leaves of {blob_len} bytes")
     out = torch.empty((n_leaves, 8), dtype=torch.int32, device=cw.device)
     cuda_lib.call("k5_groestl_leaf", cw.data_ptr(), n_leaves, blob_len // 8,
-                  _tables(cw.device).data_ptr(), out.data_ptr())
+                  _tables(cw.device).data_ptr(), out.data_ptr(), int(n_leaves < LANES_BELOW))
     return out
 
 

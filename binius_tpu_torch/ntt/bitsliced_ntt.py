@@ -13,10 +13,11 @@ consecutive elements in one word:
 
 On the card the trailing stages of a forward transform (leading of an
 inverse) whose pair distance fits a shared-memory tile of `_TILE_WORDS`
-words run fused in K3 (`csrc/ntt.cu`); every other stage is one K4 launch.
-`_stage_plain` is the plain version of both. The plan's twiddle rows are the
-contract between a kernel and its plain version; they do not depend on the
-split.
+words run fused in K3 (`csrc/ntt.cu`); the other (cross) stages run in
+K4, up to `_CROSS_STAGES` consecutive ones fused per launch
+(`_cross_runs`). `_stage_plain` is the plain version of both. The plan's
+twiddle rows are the contract between a kernel and its plain version; they
+do not depend on the split.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ from .additive_ntt import NTTDomain
 # K3 tile: words of one 32-plane group held in shared memory. 32 planes x
 # 1024 words x 4 B = 128 KB of the 227 KB a block may use; 2048 would not fit.
 _TILE_WORDS = 1024
+# K4 run: at most this many cross stages fused in one launch. Its tile holds
+# 32 planes x 2^s words of the run's index bits x 2^(10 - s) low words =
+# 128 KB, whose plane rows are still a 32-byte sector (8 words) at s = 7.
+_CROSS_STAGES = 7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,17 +243,46 @@ def ntt_local(plan: _Plan, first: int, planes: torch.Tensor,
     return planes
 
 
-def ntt_pair(plan: _Plan, st: _Stage, planes: torch.Tensor,
-             tw_row: torch.Tensor) -> torch.Tensor:
-    """One word-aligned stage (K4). The kernel updates a CUDA `planes` in place."""
+def _cross_runs(plan: _Plan) -> list:
+    """The cross stages (those K3 does not take) as K4 launches: (first, n)
+    runs of consecutive stages in execution order, each of at most
+    `_CROSS_STAGES`."""
+    n_stages = len(plan.stages)
+    lo, hi = (plan.n_local, n_stages) if plan.inverse else (0, n_stages - plan.n_local)
+    return [(f, min(_CROSS_STAGES, hi - f)) for f in range(lo, hi, _CROSS_STAGES)]
+
+
+def _cross_lo_bit(plan: _Plan, first: int, n: int) -> int:
+    """log2 of the least word distance of the run plan.stages[first:first + n],
+    checked to be what K4 runs: 1..`_CROSS_STAGES` stages at consecutive
+    word distances, a forward run from its largest down, an inverse run
+    from its least up."""
+    dws = [st.d_elems >> 5 for st in plan.stages[first:first + n]]
+    lo_bit = min(dws, default=1).bit_length() - 1
+    want = [1 << (lo_bit + k) for k in range(n)]
+    if (not 1 <= n <= _CROSS_STAGES or len(dws) != n or lo_bit < 3
+            or dws != (want if plan.inverse else want[::-1])):
+        raise ValueError(f"ntt_cross: stages at word distances {dws} are not one run")
+    return lo_bit
+
+
+def ntt_cross(plan: _Plan, first: int, n: int, planes: torch.Tensor,
+              tw: torch.Tensor) -> torch.Tensor:
+    """Cross stages plan.stages[first:first + n] fused in one pass (K4).
+    `tw` holds their twiddle rows [n, W]. The kernel updates a CUDA
+    `planes` in place."""
+    stages = plan.stages[first:first + n]
     if not planes.is_cuda:
-        return _stage_plain(plan, st, planes, tw_row)
-    _check_cuda_plan(plan, planes, "ntt_pair")
-    cuda_lib.check(tw_row, "ntt_pair tw", ndim=1)
-    if st.d_elems < 32:
-        raise ValueError("ntt_pair: intra-word stages run in K3")
-    cuda_lib.call("k4_ntt_pair", planes.data_ptr(), tw_row.data_ptr(), plan.n_words,
-                  1 << (plan.dl - 5), st.d_elems >> 5, int(plan.inverse))
+        for k, st in enumerate(stages):
+            planes = _stage_plain(plan, st, planes, tw[k])
+        return planes
+    _check_cuda_plan(plan, planes, "ntt_cross")
+    cuda_lib.check(tw, "ntt_cross tw", ndim=2)
+    lo_bit = _cross_lo_bit(plan, first, n)
+    if tuple(tw.shape) != (n, plan.n_words):
+        raise ValueError(f"ntt_cross: twiddles {tuple(tw.shape)} do not match the run")
+    cuda_lib.call("k4_ntt_cross", planes.data_ptr(), tw.data_ptr(), plan.n_words,
+                  1 << (plan.dl - 5), lo_bit, n, int(plan.inverse))
     return planes
 
 
@@ -284,13 +318,11 @@ def _dev_tw(plan: _Plan, tw_np: np.ndarray, device) -> torch.Tensor:
 
 def _run_planes(plan: _Plan, planes: torch.Tensor, tw_all: torch.Tensor) -> torch.Tensor:
     """The stage loop; on the card it updates `planes` in place."""
-    n_stages = len(plan.stages)
-    first = 0 if plan.inverse else n_stages - plan.n_local
-    cross = range(plan.n_local, n_stages) if plan.inverse else range(0, first)
+    first = 0 if plan.inverse else len(plan.stages) - plan.n_local
     if plan.inverse and plan.n_local:
         planes = ntt_local(plan, first, planes, tw_all[first:first + plan.n_local])
-    for si in cross:
-        planes = ntt_pair(plan, plan.stages[si], planes, tw_all[si])
+    for f, n in _cross_runs(plan):
+        planes = ntt_cross(plan, f, n, planes, tw_all[f:f + n])
     if not plan.inverse and plan.n_local:
         planes = ntt_local(plan, first, planes, tw_all[first:])
     return planes

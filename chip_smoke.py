@@ -6,8 +6,9 @@ check them.
 
 1. Prints the card (nvidia-smi name and power limit) and the versions.
 2. Builds the kernels from binius_tpu_torch/csrc (nvcc, sm_90a) and times it.
-   The ptxas report (registers, spills; K1 and K2 must not spill), the
-   SASS instruction counts of K1, and the card figures the bounds use.
+   The ptxas report (registers, spills; K1, K2, K4 and K5 must not spill),
+   the SASS instruction counts of K1 and K5, and the card figures the
+   bounds use.
 3. One phase per kernel (K1-K6) at the shapes of the main path: the
    kernel's output against its plain PyTorch version on the same inputs
    (bit-equal: every operation is exact over GF(2)), the kernel's and the
@@ -15,9 +16,14 @@ check them.
    K1 (`bitslice_cuda.mul`, packed in and out, one launch) runs at levels
    5, 6 and 7 on 2^22 elements: full x full, a scalar on either side, and
    a ragged 2^22 - 7 elements; B128 also at a sixteenth of the size from
-   which it takes its persistent kernel, the same four cases.
+   which it takes its persistent kernel, the same four cases. K4 (cross
+   stages fused in runs) forward at the commit's plan and at a plan of two
+   runs, inverse at a plan of five cross stages. K5 (both of its kernels)
+   at the opening's four leaf shapes, at a ragged leaf count and at blobs
+   of 16 and 56 bytes.
 4. The commit: the u32_add witness at 2^log_rows rows from --seed,
-   committed with `piop.commit` on the card, its launches counted; its root
+   committed with `piop.commit` on the card, its launches counted (K4 one
+   per run of cross stages, K5 one); its root
    against the same commit composed from the plain versions; at 2^16 rows
    the root against a golden root computed by the JAX package; the warm
    commit time and its split.
@@ -157,15 +163,18 @@ def bound_ms(n_bytes: int, n_ops: int, gates_per_s: float) -> tuple[float, str]:
 
 
 def ptxas_spills(log_text: str) -> dict:
-    """Spill bytes (stores + loads) per source file in the ptxas report."""
-    spills, src = {}, None
+    """Spill bytes (stores + loads) per (source file, function) in the
+    ptxas report."""
+    spills, src, fn = {}, None, None
     for line in log_text.splitlines():
         if line.startswith("== "):
             src = line[3:].strip()
-            spills[src] = 0
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and src:
-            spills[src] += int(m.group(1)) + int(m.group(2))
+        if m and src and fn:
+            spills[(src, fn)] = int(m.group(1)) + int(m.group(2))
     return spills
 
 
@@ -299,12 +308,18 @@ def main() -> int:
                 or line.startswith("==")):
             log("  ptxas:", line.strip())
     spills = ptxas_spills(ptxas)
-    log(f"ptxas spill bytes (stores + loads) per source: {spills}")
-    for src in ("tower_mul.cu", "transpose32.cu"):
-        if spills.get(src, 1):
-            raise AssertionError(f"{src}: ptxas reports spills or no report ({spills.get(src)})")
+    per_src = {}
+    for (src, _), v in spills.items():
+        per_src[src] = per_src.get(src, 0) + v
+    log(f"ptxas spill bytes (stores + loads) per source: {per_src}")
+    # every K1 and K2 function, and K4's and K5's kernels, must not spill
+    for what in ("tower_mul.cu", "transpose32.cu", "ntt_cross_kernel", "leaf_kernel",
+                 "leaf_lanes_kernel"):
+        hits = {k: v for k, v in spills.items() if k[0] == what or what in k[1]}
+        if not hits or any(hits.values()):
+            raise AssertionError(f"{what}: ptxas reports spills or no report ({hits})")
     cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
-    for fn, c in sass_counts(cuobjdump, so, r"mul\w*_kernel").items():
+    for fn, c in sass_counts(cuobjdump, so, r"mul\w*_kernel|leaf\w*_kernel").items():
         log(f"  sass: {fn}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
     rates = card_rates()
     log("bounds: HBM %.2f TB/s; logic %d SMs x %.0f MHz (max SM clock) x %d results/clock/SM x "
@@ -326,7 +341,7 @@ def main() -> int:
     cross = [plan.stages[si] for si in range(first)]
     local = plan.stages[first:]
     log(f"slice: {args.log_rows} rows, {params}, message {tuple(message.shape)}, "
-        f"W {plan.n_words} words, {len(cross)} pair stages + {len(local)} fused "
+        f"W {plan.n_words} words, {len(cross)} cross stages + {len(local)} fused "
         f"(tile {plan.tile})")
     torch.cuda.synchronize()
 
@@ -402,23 +417,59 @@ def main() -> int:
            lambda _: bitslice.from_bitsliced(7, bitslice.to_bitsliced(7, rep)),
            n_bytes=2 * 2 * rep.numel() * 4, n_ops=2 * rep.numel() * TRANSPOSE_GATES_PER_WORD)
 
-    # K4: the pair stages, one launch each
-    def pairs_k(x):
-        for si, st in enumerate(cross):
-            bn.ntt_pair(plan, st, x, tw[si])
+    # K4: the cross stages, fused in runs of up to bn._CROSS_STAGES, one
+    # launch per run. Bound: the planes read and written once, and the
+    # run's twiddle rows read once.
+    def cross_k(p_, tw_, x):
+        for f, n in bn._cross_runs(p_):
+            x = bn.ntt_cross(p_, f, n, x, tw_[f:f + n])
         return x
 
-    def pairs_p(x):
-        for si, st in enumerate(cross):
-            x = bn._stage_plain(plan, st, x, tw[si])
-        return x
+    def cross_p(p_, tw_, pl):
+        for f, n in bn._cross_runs(p_):
+            for si in range(f, f + n):
+                pl = bn._stage_plain(p_, p_.stages[si], pl, tw_[si])
+        return pl
 
-    after_pairs = pairs_k(planes_k.clone())
-    report("k4_ntt_pair", "binius_tpu_torch/csrc/ntt.cu",
+    def check_cross(p_, tw_, pl, label):
+        runs = bn._cross_runs(p_)
+        cuda_lib.reset_launches()
+        got = cross_k(p_, tw_, pl.clone())
+        torch.cuda.synchronize()
+        if dict(cuda_lib.launches) != {**dict.fromkeys(cuda_lib.KERNELS, 0),
+                                       "k4_ntt_cross": len(runs)}:
+            raise AssertionError(f"K4 {label}: launches {cuda_lib.launches}, runs {runs}")
+        n_cross = sum(n for _, n in runs)
+        return got, runs, n_cross
+
+    after_cross, runs, n_cross = check_cross(plan, tw, planes_k, "commit")
+    report("k4_ntt_cross", "binius_tpu_torch/csrc/ntt.cu",
            "binius_tpu/ntt/bitsliced_ntt.py:295",
-           after_pairs, pairs_p(planes_k), pairs_k, pairs_p,
-           n_bytes=len(cross) * (2 * planes_k.numel() * 4 + plan.n_words * 4),
-           n_ops=ntt_ops(plan, cross), setup=planes_k.clone)
+           after_cross, cross_p(plan, tw, planes_k),
+           lambda x: cross_k(plan, tw, x), lambda x: cross_p(plan, tw, x),
+           n_bytes=2 * planes_k.numel() * 4 + n_cross * plan.n_words * 4,
+           n_ops=ntt_ops(plan, cross), setup=planes_k.clone,
+           label=f"forward, commit plan, {n_cross} stages in runs {runs}")
+    # the same planes forward at the commit's shape without the skipped
+    # round (8 cross stages: two runs), and inverse at 2^20 elements (five)
+    dom = params.ntt_domain()
+    inv_shape = (params.log_batch_size, params.log_code_len - 3, 0)
+    for label, (shape_k, skip_k, inv_k) in (("forward, two runs", (shape, 0, False)),
+                                            ("inverse", (inv_shape, 0, True))):
+        p_k, tw_np_k = bn._make_plan(dom, fri.LEVEL, shape_k, 0, 0, skip_k, inv_k)
+        tw_k = bn._dev_tw(p_k, tw_np_k, dev)
+        pl = planes_k if p_k.n_words == plan.n_words else planes_k[:, :p_k.n_words].contiguous()
+        got, runs_k, n_k = check_cross(p_k, tw_k, pl, label)
+        cross_stages = [p_k.stages[si] for f, n in runs_k for si in range(f, f + n)]
+        report("k4_ntt_cross", "binius_tpu_torch/csrc/ntt.cu",
+               "binius_tpu/ntt/bitsliced_ntt.py:295",
+               got, cross_p(p_k, tw_k, pl),
+               lambda x, p_k=p_k, tw_k=tw_k: cross_k(p_k, tw_k, x),
+               lambda x, p_k=p_k, tw_k=tw_k: cross_p(p_k, tw_k, x),
+               n_bytes=2 * len(runs_k) * pl.numel() * 4 + n_k * p_k.n_words * 4,
+               n_ops=ntt_ops(p_k, cross_stages), setup=pl.clone, row=False,
+               label=f"{label}, shape {shape_k}, W {p_k.n_words}, {n_k} stages in runs {runs_k}")
+        del got, pl
 
     # K3: the fused trailing stages, one launch
     def local_k(x):
@@ -429,27 +480,67 @@ def main() -> int:
             x = bn._stage_plain(plan, st, x, tw[first + k])
         return x
 
-    planes_out = local_k(after_pairs.clone())
+    planes_out = local_k(after_cross.clone())
     report("k3_ntt_local", "binius_tpu_torch/csrc/ntt.cu",
            "binius_tpu/ntt/bitsliced_ntt.py:258",
-           planes_out, local_p(after_pairs), local_k, local_p,
+           planes_out, local_p(after_cross), local_k, local_p,
            n_bytes=2 * planes_k.numel() * 4 + len(local) * plan.n_words * 4,
-           n_ops=ntt_ops(plan, local), setup=after_pairs.clone)
+           n_ops=ntt_ops(plan, local), setup=after_cross.clone)
 
-    # K5: leaf hashes of the codeword, one launch
+    # K5: leaf digests, one launch per tree. Both kernels (16 lanes per
+    # leaf, one thread per leaf; the wrapper picks by leaf count,
+    # groestl_cuda.LANES_BELOW) at the opening's four shapes: the commit's
+    # 2^19 leaves of 256 B, the FRI oracles' 2^15 and 2^11 leaves of 256 B
+    # and the last oracle's 2 leaves of 16 KiB; then a leaf count that is
+    # no multiple of a lane group or block, and blobs of 16 and 56 bytes
+    # (the padding of the latter takes a block of its own). Bound per
+    # shape: the blobs read and the digests written once, and the rounds'
+    # operations. Shapes below 2^12 leaves are timed over 20 back-to-back
+    # launches, whose rate the host wrapper sets (device time per launch:
+    # scripts/profile_opening.py).
     cw = bitslice_cuda.from_bitsliced(7, planes_out)
     log_coset = params.log_coset
     n_leaves = cw.shape[0] >> log_coset
     blob_len = cw.numel() * 4 // n_leaves
-    n_blocks = (blob_len + 8) // 64 + 1
-    leaves_k = groestl_cuda.leaf_hash_kernel(cw, log_coset, blob_len)
-    report("k5_groestl_leaf", "binius_tpu_torch/csrc/groestl.cu",
-           "binius_tpu/hash/groestl_pallas.py:179",
-           leaves_k, groestl_cuda.leaf_hash_plain(cw, log_coset, blob_len),
-           lambda _: groestl_cuda.leaf_hash_kernel(cw, log_coset, blob_len),
-           lambda _: groestl_cuda.leaf_hash_plain(cw, log_coset, blob_len),
-           n_bytes=cw.numel() * 4 + n_leaves * 32,
-           n_ops=n_leaves * (2 * n_blocks + 1) * 10 * GROESTL_ROUND_OPS)
+
+    def k5_shape(x, lc, label, row=False):
+        n_l = x.shape[0] >> lc
+        b_len = x.numel() * 4 // n_l
+        n_blk = (b_len + 8) // 64 + 1
+        want = groestl_cuda.leaf_hash_plain(x, lc, b_len)
+        pick = groestl_cuda.LANES_BELOW
+        for variant, below in (("16 lanes per leaf", 1 << 62), ("one thread per leaf", 0)):
+            groestl_cuda.LANES_BELOW = below
+            cuda_lib.reset_launches()
+            got = groestl_cuda.leaf_hash_kernel(x, lc, b_len)
+            torch.cuda.synchronize()
+            if dict(cuda_lib.launches) != {**dict.fromkeys(cuda_lib.KERNELS, 0),
+                                           "k5_groestl_leaf": 1}:
+                raise AssertionError(f"K5 {label}: launches {cuda_lib.launches}")
+            chosen = (n_l < pick) == (below > 0)
+            report("k5_groestl_leaf", "binius_tpu_torch/csrc/groestl.cu",
+                   "binius_tpu/hash/groestl_pallas.py:179", got, want,
+                   lambda _: groestl_cuda.leaf_hash_kernel(x, lc, b_len),
+                   lambda _: groestl_cuda.leaf_hash_plain(x, lc, b_len),
+                   n_bytes=x.numel() * 4 + n_l * 32,
+                   n_ops=n_l * (2 * n_blk + 1) * 10 * GROESTL_ROUND_OPS,
+                   label=f"{label}: {n_l} leaves of {b_len} B, {variant}"
+                         f"{' (the wrapper picks it)' if chosen else ''}",
+                   row=row and chosen, inner=1 if n_l > 1 << 12 else 20)
+        groestl_cuda.LANES_BELOW = pick
+        return want
+
+    def rand_words(shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    leaves_k = k5_shape(cw, log_coset, "commit", row=True)
+    for n_l, lc, label in ((1 << 15, 4, "FRI oracle 1"), (1 << 11, 4, "FRI oracle 2"),
+                           (2, 10, "FRI oracle 3")):
+        k5_shape(rand_words((n_l << lc, 4)), lc, label)
+    k5_shape(rand_words((((1 << 11) + 3) << 4, 4)), 4, "ragged count")
+    k5_shape(rand_words((1001, 4)), 0, "16-byte blobs")
+    k5_shape(rand_words((999, 14)), 0, "56-byte blobs")
 
     # K6: the device levels down to _MIN_DEVICE_ROWS rows, one launch each
     n_dev = (n_leaves.bit_length() - 1) - (_MIN_DEVICE_ROWS.bit_length() - 1)
@@ -481,6 +572,9 @@ def main() -> int:
     missing = [k for k, v in counts.items() if v == 0 and k != "k1_tower_mul"]
     if missing:
         raise AssertionError(f"kernels not launched on the commit: {missing}")
+    if counts["k4_ntt_cross"] != len(runs) or counts["k5_groestl_leaf"] != 1:
+        raise AssertionError(f"commit: K4 {counts['k4_ntt_cross']} launches for {len(runs)} "
+                             f"runs, K5 {counts['k5_groestl_leaf']} launches for one tree")
 
     # (a) the same commit composed from the plain versions, on the card
     p = bitslice.to_bitsliced(7, torch.cat([msg_main] * (1 << params.log_inv_rate)))
@@ -553,6 +647,8 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if counts["k2_transpose32"] != 2:  # the commit's NTT in and out; tower.mul never
         raise AssertionError(f"K2 launched {counts['k2_transpose32']} times, not 2")
+    if counts["k4_ntt_cross"] != len(runs):  # the commit's NTT only
+        raise AssertionError(f"K4 launched {counts['k4_ntt_cross']} times, not {len(runs)}")
     for r in rows:
         r["launches"] = counts[r["name"]]
     verify_opening(inst, proof)

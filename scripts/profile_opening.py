@@ -9,8 +9,11 @@ one under `torch.profiler` (CPU and CUDA activities). Prints the card
 around work that ends in `torch.cuda.synchronize()`), the device time by
 kernel name (sum, calls, mean), the sum over all device kernels and the
 device's idle share of the wall time (one stream, so kernels do not
-overlap), the port's launch counts for the same opening, and K1's
-launches by level and batch size with their device time.
+overlap), the port's launch counts for the same opening, K1's launches
+by level and batch size with their device time, and each launch of K4
+(its stages), K5 (leaves, blob bytes, kernel) and K6 (pairs) with its
+device time. A launch's device time comes from the profiler's events of
+its kernel, matched in order to the launches the wrappers made.
 
 --k1-designs profiles two more openings, one with every B128 product on
 K1's one-tile-per-block kernel and one with every B128 product on its
@@ -52,13 +55,13 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     inst = chip_smoke.instance(args.log_rows, args.seed, torch.device("cuda"))
 
-    # K1's launches in order, (level, n, a_scalar, b_scalar, persistent)
-    k1_calls = []
+    # the launches of K1, K4, K5 and K6 in order: (wrapper name, arguments)
+    calls = []
     launch = cuda_lib.call
 
     def recording_call(name, *args):
-        if name == "k1_tower_mul":
-            k1_calls.append(args[3:])
+        if name[:2] in ("k1", "k4", "k5", "k6"):
+            calls.append((name, args))
         launch(name, *args)
 
     cuda_lib.call = recording_call
@@ -67,29 +70,56 @@ def main() -> int:
         chip_smoke.open_commitment(inst)   # warm-up: build, plans, tables
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
-        k1_calls.clear()
+        calls.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             chip_smoke.open_commitment(inst)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        return prof, wall_ms, dict(cuda_lib.launches), list(k1_calls)
+        return prof, wall_ms, dict(cuda_lib.launches), list(calls)
+
+    # device kernel names of each wrapper's kernels (this tree's and its
+    # parent's: K4 was one launch per stage, K5 one kernel)
+    kernel_names = {"k1": r"\bmul(128)?_kernel\b", "k4": r"\bntt_(pair|cross)_kernel\b",
+                    "k5": r"\bleaf\w*_kernel\b", "k6": r"\bpairs_kernel\b"}
+
+    def matched(prof, calls, k):
+        """[(launch arguments, device event)] of wrapper k's launches."""
+        evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                      and re.search(kernel_names[k], ev.name)),
+                     key=lambda ev: ev.time_range.start)
+        mine = [args for name, args in calls if name[:2] == k]
+        if len(evs) != len(mine):
+            print(f"{k.upper()}: {len(evs)} device events for {len(mine)} launches; not matched")
+            return []
+        return list(zip(mine, evs))
 
     def k1_by_size(prof, calls):
-        """{(level, log2 n): [launches, device us]} from K1's device events,
-        matched in order to its recorded launches."""
-        evs = sorted((ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-                      and re.search(r"\bmul(128)?_kernel\b", ev.name)),
-                     key=lambda ev: ev.time_range.start)
-        if len(evs) != len(calls):
-            print(f"K1: {len(evs)} device events for {len(calls)} launches; not matched")
-            return {}
+        """{(level, log2 n): [launches, device us]} from K1's device events."""
         sizes = collections.defaultdict(lambda: [0, 0.0])
-        for ev, (level, n, *_) in zip(evs, calls):
+        for (_, _, _, level, n, *_), ev in matched(prof, calls, "k1"):
             row = sizes[(level, n.bit_length() - 1)]
             row[0] += 1
             row[1] += ev.time_range.elapsed_us()
         return sizes
+
+    def per_launch(prof, calls):
+        """Each launch of K4, K5 and K6 with its device time."""
+        k4, k5, k6 = (matched(prof, calls, k) for k in ("k4", "k5", "k6"))
+        print("K4 launches (stages per launch, lowest word distance, device us):")
+        for args, ev in k4:
+            stages = args[5] if len(args) > 6 else 1  # k4_ntt_pair ran one stage
+            dist = 1 << args[4] if len(args) > 6 else args[4]
+            print(f"  {stages} stages from word distance {dist}: {ev.time_range.elapsed_us():.2f}")
+        print("K5 launches (leaves x blob bytes, kernel, device us):")
+        for args, ev in k5:
+            kernel = re.search(kernel_names["k5"], ev.name).group(0)
+            print(f"  {args[1]} x {args[2] * 8} B, {kernel}: {ev.time_range.elapsed_us():.2f}")
+        print("K6 launches (pairs: device us): " + ", ".join(
+            f"{args[1]}: {ev.time_range.elapsed_us():.2f}" for args, ev in k6))
+        for k, launches in (("K4", k4), ("K5", k5), ("K6", k6)):
+            us = sum(ev.time_range.elapsed_us() for _, ev in launches)
+            print(f"{k} device ms over its launches: {us / 1e3:.4f}")
 
     prof, wall_ms, launches, calls = profiled_opening()
 
@@ -105,6 +135,8 @@ def main() -> int:
     print(f"{'device ms':>10} {'calls':>6} {'mean us':>9}  kernel")
     for ms, count, key in kernels[:args.top]:
         print(f"{ms:10.3f} {count:6d} {ms / count * 1e3:9.2f}  {key[:110]}")
+
+    per_launch(prof, calls)
 
     runs = {f"as run (B128 persistent from {bitslice_cuda.B128_PERSISTENT_FROM})":
             k1_by_size(prof, calls)}

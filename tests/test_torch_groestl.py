@@ -8,6 +8,8 @@ import pytest
 
 from binius_tpu.hash import groestl as jg
 from binius_tpu.hash import groestl_pallas as jgp
+from binius_tpu.merkle.tree import hash_leaves
+from binius_tpu.protocols.fri import leaf_blobs
 from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.hash import groestl, groestl_cuda
 
@@ -24,6 +26,15 @@ def test_leaf_hash_matches_reference(log_coset, limbs):
     want = jgp.leaf_hash_np(cw, log_coset, blob_len)
     got = groestl_cuda.leaf_hash_kernel(from_reference(cw, "cpu"), log_coset, blob_len)
     assert np.array_equal(to_reference(got), want)
+
+
+def test_long_leaves_match_reference():
+    """The last FRI oracle's leaves: 2 of 1024 B128 elements (16 KiB, 257
+    compressions each), against the JAX package's host digests."""
+    cw = _words((2 << 10, 4), seed=10)
+    got = groestl_cuda.leaf_hash_plain(from_reference(cw, "cpu"), 10, 16 << 10)
+    want = hash_leaves(leaf_blobs(cw, 10))
+    assert np.array_equal(to_reference(got).view(np.uint8).reshape(-1, 32), want)
 
 
 def test_pairs_match_reference():

@@ -5,6 +5,8 @@ transform in the `rs_encode` configuration (B128 data, B32 twiddles,
 log_x 4, skip_rounds 1) against `AdditiveNTT.forward_scalar` /
 `inverse_scalar` column by column. Bit-exact."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,12 @@ from binius_tpu_torch.ntt import additive_ntt, bitsliced_ntt
 
 def _b128(n, seed):
     return np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 4), dtype=np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _domain_19():
+    """The FRI domain of the 2^22-row commit (log_code_len 19)."""
+    return additive_ntt.NTTDomain.create(5, 19)
 
 
 def _columns(arr, log_x):
@@ -50,6 +58,27 @@ def test_plan_matches_reference(shape, skip, inverse):
     assert plan.tile == min(bitsliced_ntt._TILE_WORDS, plan.n_words)
     local = plan.stages[:plan.n_local] if inverse else plan.stages[len(plan.stages) - plan.n_local:]
     assert all((s.d_elems >> 5) <= plan.tile // 2 for s in local)
+
+
+@pytest.mark.parametrize("shape,skip,inverse,runs", [
+    ((4, 19, 0), 1, False, [(0, 7)]),          # the 2^22-row commit: one K4 launch
+    ((4, 16, 0), 0, True, [(11, 5)]),
+    ((4, 19, 0), 0, False, [(0, 7), (7, 1)]),  # longer than one pass
+])
+def test_cross_runs_cover_each_stage_once_in_order(shape, skip, inverse, runs):
+    dom = _domain_19()
+    plan, _ = bitsliced_ntt._make_plan(dom, 7, shape, 0, 0, skip, inverse)
+    assert bitsliced_ntt._cross_runs(plan) == runs
+    n = len(plan.stages)
+    local = list(range(plan.n_local)) if inverse else list(range(n - plan.n_local, n))
+    cross = [si for f, k in runs for si in range(f, f + k)]
+    assert (local + cross if inverse else cross + local) == list(range(n))
+    for f, k in runs:
+        lo_bit = bitsliced_ntt._cross_lo_bit(plan, f, k)
+        assert (plan.stages[f].d_elems >> 5) == 1 << (lo_bit + (0 if inverse else k - 1))
+        assert plan.n_words % (1 << (lo_bit + k)) == 0
+    with pytest.raises(ValueError):  # the run's order is the kernel's
+        bitsliced_ntt._cross_lo_bit(plan, runs[0][0], runs[0][1] + 1)
 
 
 @pytest.mark.parametrize("log_y", [4, 6])
