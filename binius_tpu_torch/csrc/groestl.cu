@@ -14,8 +14,6 @@
 // The tables and round constants come from the host, derived from first
 // principles in hash/groestl.py; no constant of the cipher lives here.
 //
-// K6 is one thread per pair over the 8 tables (16 KB of shared memory).
-//
 // K5 is bounded on the H100 by its lookups: a leaf of 256 B costs 11
 // permutations (5 compressions of P and Q, then the output transform) of
 // 10 rounds x 64 lookups of 8 bytes, far above the 288 B it moves. Per
@@ -46,49 +44,33 @@
 //    of both at the opening's shapes on the card.
 //  * Message blocks prefetched one block ahead into registers; a lane group
 //    reads a 64-byte block in one coalesced request.
+//
+// K6 applies P only (trunc256(P(a||b) ^ (a||b))), 10 rounds of 64 lookups
+// per pair, over the same one-table form, and runs every level of the tree
+// to the root on the card, every level written into one buffer:
+//  * Wide levels: `pairs_kernel`, one launch per level, one thread per pair.
+//  * The tail: a narrow level is too little work for a launch of its own
+//    (a launch of one-thread pairs costs about 9.5 us below 2^15 pairs,
+//    most of it one thread's chain of 10 rounds of 64 lookups).
+//    `tail_kernel` runs every level from a given one to the root in one
+//    cooperative launch, 8 lanes per pair (lane c holds column c, a round's
+//    bytes by width-8 shuffles as in `leaf_lanes_kernel`, so a pair's chain
+//    is 10 rounds of 8 lookups). A level spreads over all resident blocks
+//    with a grid barrier after it; from the level that fits one block on,
+//    block 0 runs alone, levels separated by `__syncthreads`. Its floor is
+//    that chain: the number of levels x 10 rounds. The wrapper picks the
+//    level at which the tail starts (hash/groestl_cuda.py, TAIL_PAIRS) from
+//    the times of both forms at the opening's tree shapes on the card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kRounds = 10;
+// the host's table layout: T[8][256], then P constants [10][8], then Q
+// constants [10][8]; the kernels read T_0 and the constants
 constexpr int kTableWords = 8 * 256;
-// tables layout: T[8][256], then P constants [10][8], then Q constants [10][8]
-constexpr int kConstWords = kTableWords + 2 * kRounds * 8;
-
-__device__ __forceinline__ void load_tables(const uint64_t* __restrict__ g,
-                                            uint64_t* s) {
-  for (int i = threadIdx.x; i < kConstWords; i += blockDim.x) s[i] = g[i];
-  __syncthreads();
-}
-
-// P (Q = false) or Q permutation on 8 column words.
-template <bool Q>
-__device__ __forceinline__ void permute(uint64_t* x, const uint64_t* s) {
-  const uint64_t* T = s;
-  const uint64_t* rc = s + kTableWords + (Q ? kRounds * 8 : 0);
-  // row i of the state rotates left by i columns in P, and in Q by
-  // (1, 3, 5, 7, 0, 2, 4, 6)[i]
-#pragma unroll 1
-  for (int r = 0; r < kRounds; ++r) {
-    uint64_t a[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) a[c] = x[c] ^ rc[r * 8 + c];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      uint64_t acc = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int sh = Q ? (i < 4 ? 2 * i + 1 : 2 * i - 8) : i;
-        const uint32_t byte = (uint32_t)(a[(c + sh) & 7] >> (8 * i)) & 0xFFu;
-        acc ^= T[i * 256 + byte];
-      }
-      x[c] = acc;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K5
@@ -96,10 +78,11 @@ __device__ __forceinline__ void permute(uint64_t* x, const uint64_t* s) {
 
 constexpr int kCopies = 32;                // interleaved copies of T_0, one per lane
 constexpr int kT0Words = 256 * kCopies;
-constexpr int kLeafSmem = (kT0Words + 2 * kRounds * 8) * 8;  // 66,816 B
+constexpr int kT0Smem = (kT0Words + 2 * kRounds * 8) * 8;  // 66,816 B
 constexpr int kLeafThreads = 256;          // leaf_kernel: leaves per block
 constexpr int kLaneThreads = 256;          // leaf_lanes_kernel: 16 leaves
 constexpr int kLanes = 16;
+constexpr int kPairThreads = 256;          // pairs_kernel: pairs per block
 
 __device__ __forceinline__ uint32_t lo32(uint64_t v) { return (uint32_t)v; }
 __device__ __forceinline__ uint32_t hi32(uint64_t v) { return (uint32_t)(v >> 32); }
@@ -292,21 +275,89 @@ __global__ void __launch_bounds__(kLaneThreads)
   if (!q && c >= 4) out[leaf * 4 + (c - 4)] = x ^ h;
 }
 
-// K6. One thread per pair of 32-byte digests.
-__global__ void __launch_bounds__(kThreads)
+// K6, a wide level: one thread per pair of 32-byte digests.
+__global__ void __launch_bounds__(kPairThreads)
     pairs_kernel(const uint64_t* __restrict__ dig, int n_pairs,
-                 const uint64_t* __restrict__ tables,
-                 uint64_t* __restrict__ out) {
-  __shared__ uint64_t s[kConstWords];
-  load_tables(tables, s);
+                 const uint64_t* __restrict__ tables, uint64_t* __restrict__ out) {
+  extern __shared__ uint64_t s[];
+  load_t0(tables, s);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_pairs) return;
+  const uint32_t lane8 = (threadIdx.x & 31) * 8;
   uint64_t m[8], x[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) x[c] = m[c] = dig[i * 8 + c];
-  permute<false>(x, s);
+  permute_thread<false>(x, s, lane8, s + kT0Words);
 #pragma unroll
   for (int c = 4; c < 8; ++c) out[i * 4 + (c - 4)] = x[c] ^ m[c];
+}
+
+constexpr int kTailThreads = 1024;               // 8 lanes per pair
+constexpr int kTailPairs = kTailThreads / 8;     // pairs per block and pass
+
+// The tail's grid barrier: generation and arrival count, zero at load.
+__device__ unsigned g_tail_gen = 0, g_tail_arrived = 0;
+
+// Every block of the (cooperative, co-resident) grid meets here; what any
+// block wrote before it is visible to all after it, at L2 (read with
+// __ldcg: a line cached in L1 before may hold the next level's bytes).
+__device__ __forceinline__ void grid_barrier() {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = &g_tail_gen;
+    const unsigned mine = *gen;
+    __threadfence();
+    if (atomicAdd(&g_tail_arrived, 1) == gridDim.x - 1) {
+      g_tail_arrived = 0;
+      __threadfence();
+      atomicAdd(&g_tail_gen, 1);
+    } else {
+      while (*gen == mine) {
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// K6, the tail: the level of `n_pairs` pairs at `in`, and every level
+// above it to the root, in one cooperative launch. Level j + 1 follows
+// level j in `out` (n_pairs >> j digests of 4 words each). A level spreads
+// its pairs over every block; once a level fits one block (kTailPairs
+// pairs), the other blocks leave and block 0 runs the rest alone,
+// levels separated by __syncthreads. `in` and `out` are not __restrict__
+// const: each level reads what the grid wrote before.
+__global__ void __launch_bounds__(kTailThreads, 1)
+    tail_kernel(const uint64_t* in, int n_pairs, const uint64_t* __restrict__ tables,
+                uint64_t* out) {
+  extern __shared__ uint64_t s[];
+  load_t0(tables, s);
+  const int c = threadIdx.x & 7;
+  const unsigned mask = 0xFFu << (threadIdx.x & 24);
+  int src[8];  // the lane (within the 8) that holds byte i of this lane's input
+#pragma unroll
+  for (int i = 0; i < 8; ++i) src[i] = (c + i) & 7;
+  const uint32_t lane8 = (threadIdx.x & 31) * 8;
+  const uint64_t* rc = s + kT0Words + c;
+  for (int n = n_pairs; n >= 1; n >>= 1) {
+    for (int p = blockIdx.x * kTailPairs + (threadIdx.x >> 3); p < n;
+         p += gridDim.x * kTailPairs) {
+      const uint64_t m = __ldcg(reinterpret_cast<const unsigned long long*>(in) + p * 8 + c);
+      uint64_t x = m;
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) x = round_lanes(x ^ rc[r * 8], src, s, lane8, mask);
+      if (c >= 4) out[p * 4 + (c - 4)] = x ^ m;
+    }
+    if (n > kTailPairs) {
+      grid_barrier();
+    } else if (blockIdx.x) {
+      return;
+    } else {
+      __syncthreads();
+    }
+    in = out;
+    out += 4 * n;
+  }
 }
 
 }  // namespace
@@ -323,29 +374,63 @@ extern "C" int k5_groestl_leaf(const void* cw, int n_leaves, int blob_words,
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t e =
-        cudaFuncSetAttribute(leaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kLeafSmem);
+        cudaFuncSetAttribute(leaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kT0Smem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(leaf_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kLeafSmem);
+                               kT0Smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   if (lanes) {
     const long long threads = (long long)n_leaves * kLanes;
     const unsigned blocks = (unsigned)((threads + kLaneThreads - 1) / kLaneThreads);
-    leaf_lanes_kernel<<<blocks, kLaneThreads, kLeafSmem, s>>>(c, n_leaves, blob_words, t, o);
+    leaf_lanes_kernel<<<blocks, kLaneThreads, kT0Smem, s>>>(c, n_leaves, blob_words, t, o);
   } else {
     const unsigned blocks = (unsigned)((n_leaves + kLeafThreads - 1) / kLeafThreads);
-    leaf_kernel<<<blocks, kLeafThreads, kLeafSmem, s>>>(c, n_leaves, blob_words, t, o);
+    leaf_kernel<<<blocks, kLeafThreads, kT0Smem, s>>>(c, n_leaves, blob_words, t, o);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int k6_groestl_pairs(const void* digests, int n_pairs,
-                                const void* tables, void* out, void* stream) {
-  unsigned blocks = (unsigned)((n_pairs + kThreads - 1) / kThreads);
-  pairs_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)digests, n_pairs, (const uint64_t*)tables,
-      (uint64_t*)out);
+// `tail` runs tail_kernel: the level at `digests` and every level above it,
+// written one after another from `out`; else the one level into `out`.
+extern "C" int k6_groestl_pairs(const void* digests, int n_pairs, const void* tables, void* out,
+                                int tail, void* stream) {
+  if (n_pairs < 1 || (tail && (n_pairs & (n_pairs - 1)))) return (int)cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e =
+        cudaFuncSetAttribute(pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kT0Smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kT0Smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const auto* d = (const uint64_t*)digests;
+  const auto* t = (const uint64_t*)tables;
+  auto* o = (uint64_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tail) {  // as many blocks as the level needs, all resident at once
+    static int resident = 0;
+    if (!resident) {
+      int dev, sms, per_sm;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tail_kernel, kTailThreads,
+                                                          kT0Smem);
+      if (e != cudaSuccess) return (int)e;
+      if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+      resident = sms * per_sm;
+    }
+    const int need = (n_pairs + kTailPairs - 1) / kTailPairs;
+    void* args[] = {&d, &n_pairs, &t, &o};
+    return (int)cudaLaunchCooperativeKernel((const void*)tail_kernel,
+                                            need < resident ? need : resident, kTailThreads,
+                                            args, kT0Smem, s);
+  } else {
+    const unsigned blocks = (unsigned)((n_pairs + kPairThreads - 1) / kPairThreads);
+    pairs_kernel<<<blocks, kPairThreads, kT0Smem, s>>>(d, n_pairs, t, o);
+  }
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,18 @@
 // tile of one group in shared memory, runs several stages on it and passes
 // through HBM once: the operations bound them.
 //  * K3 holds 1024 consecutive words of 32 planes (128 KB) and runs every
-//    stage whose pair distance lies inside it.
+//    stage whose pair distance lies inside it. The tile and the stages'
+//    twiddle rows for it (11 x 4 KB at the 2^22-row commit) come in by
+//    16-byte cp.async, so a block keeps all of its tile's loads in flight
+//    at once, and go out by 16-byte stores; passing them through registers
+//    4 bytes at a time had cost more than half the kernel's time (0.62 of
+//    1.17 ms at the commit's shape, scripts/k3_stages.py). An intra-word
+//    stage (pair distance d < 32 elements) scales only the v half of each
+//    word, so one network serves two words: their v halves packed into one
+//    word (the first word's shifted into the u positions, the second's in
+//    place), the twiddle masks packed alike; the network works lane by
+//    lane, so the packed product is both words' products (512 networks a
+//    tile, not 1024).
 //  * K4 runs a run of up to 7 consecutive cross stages, at word distances
 //    2^lo_bit ... 2^(lo_bit + s - 1). Those stages pair words that differ
 //    only in index bits lo_bit .. lo_bit + s - 1, so for fixed other bits
@@ -45,13 +56,6 @@ namespace {
 
 using tower_bs::Bs;
 
-__device__ __forceinline__ void word_masks(uint32_t tw, const int* deltas,
-                                           uint32_t* m) {
-#pragma unroll
-  for (int b = 0; b < 32; ++b)
-    m[b] = (0u - ((tw >> b) & 1u)) ^ (uint32_t)deltas[b];
-}
-
 // bits p of a word whose element sits in the u half: (p / d) even
 __device__ __forceinline__ uint32_t intra_mask_u(int d) {
   switch (d) {
@@ -63,50 +67,59 @@ __device__ __forceinline__ uint32_t intra_mask_u(int d) {
   }
 }
 
-// One word's butterflies at element distance d < 32 (_butterfly_intra).
-// x is the word's plane column with stride `stride`.
+// The butterflies at element distance d < 32 of two words x0 and x1
+// (_butterfly_intra on each), one network for both: the v halves packed
+// into one word, x0's shifted down into the u positions and x1's in place,
+// and their twiddle masks alike. `dm` holds the stage's delta masks packed
+// that way (pack_deltas). x0 and x1 are plane columns with stride `stride`,
+// read again after the network so that no second array stays live.
 template <bool INV>
-__device__ __forceinline__ void butterfly_intra(uint32_t* x, int stride,
-                                                uint32_t tw,
-                                                const int* deltas, int d) {
+__device__ __forceinline__ void butterfly_intra_packed(uint32_t* x0, uint32_t* x1, int stride,
+                                                       uint32_t tw0, uint32_t tw1,
+                                                       const uint32_t* dm, int d) {
   uint32_t m[32], v[32], sc[32];
   const uint32_t mu = intra_mask_u(d), mv = ~mu;
-  word_masks(tw, deltas, m);
-  if (!INV) {
 #pragma unroll
-    for (int b = 0; b < 32; ++b) v[b] = x[b * stride];
-    Bs<5>::mul(m, v, sc);
+  for (int b = 0; b < 32; ++b)
+    m[b] = dm[b] ^ (((0u - ((tw0 >> b) & 1u)) & mu) | ((0u - ((tw1 >> b) & 1u)) & mv));
 #pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      uint32_t xu = v[b] ^ ((sc[b] & mv) >> d);
-      uint32_t xv = v[b] ^ ((xu & mu) << d);
-      x[b * stride] = (xu & mu) | (xv & mv);
+  for (int b = 0; b < 32; ++b) {
+    uint32_t a = x0[b * stride], c = x1[b * stride];
+    if (INV) {  // v ^= u first
+      a ^= (a & mu) << d;
+      c ^= (c & mu) << d;
     }
-  } else {
-    uint32_t xv[32];
+    v[b] = ((a & mv) >> d) | (c & mv);
+  }
+  Bs<5>::mul(m, v, sc);
 #pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      uint32_t xb = x[b * stride];
-      xv[b] = xb ^ ((xb & mu) << d);
-      v[b] = (xb & mu) | (xv[b] & mv);
-    }
-    Bs<5>::mul(m, v, sc);
-#pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      uint32_t xu = x[b * stride] ^ ((sc[b] & mv) >> d);
-      x[b * stride] = (xu & mu) | (xv[b] & mv);
+  for (int b = 0; b < 32; ++b) {
+    const uint32_t a = x0[b * stride], c = x1[b * stride];
+    const uint32_t ua = (a ^ sc[b]) & mu, uc = (c ^ ((sc[b] & mv) >> d)) & mu;
+    if (!INV) {  // u ^= t v; v ^= u
+      x0[b * stride] = ua | ((a ^ (ua << d)) & mv);
+      x1[b * stride] = uc | ((c ^ (uc << d)) & mv);
+    } else {     // v ^= u; u ^= t v
+      x0[b * stride] = ua | ((a ^ ((a & mu) << d)) & mv);
+      x1[b * stride] = uc | ((c ^ ((c & mu) << d)) & mv);
     }
   }
 }
 
-__device__ __constant__ int kZeroDeltas[32] = {0};
+// A stage's delta masks as butterfly_intra_packed reads them: the v half
+// moved into the u positions, and in place.
+__device__ __forceinline__ uint32_t pack_deltas(uint32_t delta, int d) {
+  const uint32_t mv = ~intra_mask_u(d);
+  return ((delta & mv) >> d) | (delta & mv);
+}
 
 // One (u, v) word pair of one group; plane b of u at u[b * stride].
 template <bool INV>
 __device__ __forceinline__ void butterfly_pair(uint32_t* u, uint32_t* v,
                                                long long stride, uint32_t tw) {
   uint32_t m[32], x[32], sc[32];
-  word_masks(tw, kZeroDeltas, m);
+#pragma unroll
+  for (int b = 0; b < 32; ++b) m[b] = 0u - ((tw >> b) & 1u);
   if (!INV) {
 #pragma unroll
     for (int b = 0; b < 32; ++b) x[b] = v[b * stride];
@@ -129,53 +142,62 @@ __device__ __forceinline__ void butterfly_pair(uint32_t* u, uint32_t* v,
   }
 }
 
+// 16 bytes from global to shared memory without passing through registers
+__device__ __forceinline__ void copy16_async(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
 constexpr int kThreads = 256;
 constexpr int kMaxLocalStages = 32;
+constexpr int kMetaWords = 33;  // per stage: d_elems, then 32 delta masks
 
 // K3. Grid (n_words / tile, groups). meta[s] = {d_elems, 32 delta masks}.
+// Shared memory: the tile [32][tile], then the stages' twiddle rows
+// [n_stages][tile]. A stage's pairs go two to a thread: word pairs
+// (wu, wu + dw) at word distance dw, or for an intra-word stage the words
+// (k, k + tile / 2) under one packed network.
 template <bool INV>
-__global__ void __launch_bounds__(kThreads)
-    ntt_local_kernel(uint32_t* __restrict__ planes,
-                     const uint32_t* __restrict__ tw,
-                     const int* __restrict__ meta, int n_stages, int n_words,
-                     int tile) {
-  extern __shared__ uint32_t sm[];  // [32][tile]
-  __shared__ int s_meta[kMaxLocalStages * 33];
+__global__ void __launch_bounds__(kThreads, 1)
+    ntt_local_kernel(uint32_t* __restrict__ planes, const uint32_t* __restrict__ tw,
+                     const int* __restrict__ meta, int n_stages, int n_words, int tile) {
+  extern __shared__ uint32_t sm[];
+  __shared__ uint32_t s_meta[kMaxLocalStages * kMetaWords];
+  uint32_t* s_tw = sm + 32 * tile;
   const long long t0 = (long long)blockIdx.x * tile;
   uint32_t* base = planes + (long long)blockIdx.y * 32 * n_words + t0;
-  for (int i = threadIdx.x; i < 32 * tile; i += blockDim.x) {
-    int p = i / tile, w = i % tile;
-    sm[i] = base[(long long)p * n_words + w];
+  const int quads = tile / 4;  // 16-byte copies per plane or twiddle row
+  for (int i = threadIdx.x; i < 32 * quads; i += kThreads)
+    copy16_async(sm + 4 * i, base + (long long)(i / quads) * n_words + 4 * (i % quads));
+  for (int i = threadIdx.x; i < n_stages * quads; i += kThreads)
+    copy16_async(s_tw + 4 * i, tw + (long long)(i / quads) * n_words + t0 + 4 * (i % quads));
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = threadIdx.x; i < n_stages * kMetaWords; i += kThreads) {
+    const int d = meta[i - i % kMetaWords];
+    s_meta[i] = i % kMetaWords && d < 32 ? pack_deltas((uint32_t)meta[i], d) : (uint32_t)meta[i];
   }
-  for (int i = threadIdx.x; i < n_stages * 33; i += blockDim.x)
-    s_meta[i] = meta[i];
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+  const int half = tile / 2;
   for (int s = 0; s < n_stages; ++s) {
-    const int d = s_meta[s * 33];
-    const int* deltas = s_meta + s * 33 + 1;
-    const uint32_t* twr = tw + (long long)s * n_words + t0;
+    const int d = (int)s_meta[s * kMetaWords];
+    const uint32_t* twr = s_tw + s * tile;
     if (d < 32) {
-      for (int w = threadIdx.x; w < tile; w += blockDim.x)
-        butterfly_intra<INV>(sm + w, tile, twr[w], deltas, d);
+      for (int k = threadIdx.x; k < half; k += kThreads)
+        butterfly_intra_packed<INV>(sm + k, sm + k + half, tile, twr[k], twr[k + half],
+                                    s_meta + s * kMetaWords + 1, d);
     } else {
-      const int dw = d >> 5;
-      for (int k = threadIdx.x; k < tile / 2; k += blockDim.x) {
-        int wu = (k / dw) * 2 * dw + (k % dw);
+      const int dw = d >> 5, lg = __ffs(dw) - 1;
+      for (int k = threadIdx.x; k < half; k += kThreads) {
+        const int wu = ((k >> lg) << (lg + 1)) | (k & (dw - 1));
         butterfly_pair<INV>(sm + wu, sm + wu + dw, tile, twr[wu]);
       }
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < 32 * tile; i += blockDim.x) {
-    int p = i / tile, w = i % tile;
-    base[(long long)p * n_words + w] = sm[i];
-  }
-}
-
-// 16 bytes from global to shared memory without passing through registers
-__device__ __forceinline__ void copy16_async(uint32_t* dst, const uint32_t* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  for (int i = threadIdx.x; i < 32 * quads; i += kThreads)
+    *reinterpret_cast<uint4*>(base + (long long)(i / quads) * n_words + 4 * (i % quads)) =
+        *reinterpret_cast<const uint4*>(sm + 4 * i);
 }
 
 constexpr int kMaxCrossStages = 7;
@@ -228,26 +250,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 extern "C" int k3_ntt_local(void* planes, const void* tw, const void* meta,
                             int n_stages, int n_words, int groups, int tile,
                             int inverse, void* stream) {
-  if (n_stages < 1 || n_stages > kMaxLocalStages || tile < 1 ||
+  if (n_stages < 1 || n_stages > kMaxLocalStages || tile < 4 || tile % 4 ||
       n_words % tile)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)32 * tile * sizeof(uint32_t);
+  const int smem = (32 + n_stages) * tile * (int)sizeof(uint32_t);
+  auto kernel = inverse ? ntt_local_kernel<true> : ntt_local_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(n_words / tile, groups);
-  if (inverse) {
-    cudaFuncSetAttribute(ntt_local_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    ntt_local_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (uint32_t*)planes, (const uint32_t*)tw, (const int*)meta, n_stages,
-        n_words, tile);
-  } else {
-    cudaFuncSetAttribute(ntt_local_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    ntt_local_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (uint32_t*)planes, (const uint32_t*)tw, (const int*)meta, n_stages,
-        n_words, tile);
-  }
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (uint32_t*)planes, (const uint32_t*)tw, (const int*)meta, n_stages, n_words, tile);
   return (int)cudaGetLastError();
 }
 

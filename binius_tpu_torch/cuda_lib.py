@@ -38,7 +38,7 @@ _SIGNATURES = {
     "k3_ntt_local": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "k4_ntt_cross": (_P, _P, _I, _I, _I, _I, _I, _P),
     "k5_groestl_leaf": (_P, _I, _I, _P, _P, _I, _P),
-    "k6_groestl_pairs": (_P, _I, _P, _P, _P),
+    "k6_groestl_pairs": (_P, _I, _P, _P, _I, _P),
 }
 
 _lib = None

@@ -3,9 +3,9 @@
 Counterpart of `binius_tpu/merkle/tree.py`: leaves are byte blobs
 (canonically serialized field elements) hashed with Grøstl-256; internal
 nodes use the output-transform 2-to-1 compression. `MerkleTree` is the host
-tree (numpy layers); `commit_codeword_device` builds the wide levels on the
-codeword's device (K5 and K6 on the card) and only the
-`_MIN_DEVICE_ROWS`-row layer crosses to the host, which builds the top.
+tree (numpy layers); `commit_codeword_device` builds every layer, leaf to
+root, on the codeword's device (K5 and K6 on the card) and copies the top
+layers to the host in one copy. The prover hashes nothing on the host.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ import torch
 from ..device import resolve
 from ..hash import groestl, groestl_cuda
 
-# device levels stop once a layer is this small; the top of the tree is
-# latency-bound and runs on the host
-_MIN_DEVICE_ROWS = 256
+# the layers of at most this many rows (the root among them) cross to the
+# host in one copy when the tree is built: the root and the layers FRI
+# writes whole into the proof are read from there
+TOP_COPY_ROWS = 256
 
 
 def hash_leaves(blobs: np.ndarray) -> np.ndarray:
@@ -81,53 +82,54 @@ def _digests_to_np(dig: torch.Tensor) -> np.ndarray:
 def commit_codeword_device(codeword: torch.Tensor, log_coset: int,
                            device=None) -> "DeviceMerkleTree":
     """Merkle tree of a codeword ((N, limbs) int32) on CUDA unless `device`
-    names another: leaf hashing and the wide levels through K5/K6 (their
-    plain versions on the CPU), the top <= `_MIN_DEVICE_ROWS` rows on the
-    host."""
+    names another: every layer through K5 and K6 (their plain versions on
+    the CPU), the top copied to the host once."""
     cw = codeword.to(resolve(device)).reshape(codeword.shape[0], -1).contiguous()
     n_leaves = cw.shape[0] >> log_coset
     blob_len = cw.numel() * 4 // max(n_leaves, 1)
-    n_dev = max(0, (n_leaves.bit_length() - 1) - (_MIN_DEVICE_ROWS.bit_length() - 1))
-    outs = groestl_cuda.tree_levels(cw, log_coset, blob_len, n_dev)
-    top = MerkleTree.build(_digests_to_np(outs[-1]))
-    return DeviceMerkleTree(outs[:-1], top)
+    return DeviceMerkleTree(groestl_cuda.tree_levels(cw, log_coset, blob_len))
 
 
 class DeviceMerkleTree:
-    """Merkle tree whose wide levels stay on the device ((N, 8) int32 digests)
-    and whose top (<= `_MIN_DEVICE_ROWS` rows) is a host `MerkleTree`."""
+    """Merkle tree whose layers stay on the device, stacked leaf to root in
+    one (2N - 1, 8) int32 buffer; the layers of at most `TOP_COPY_ROWS` rows
+    are also on the host, from one copy."""
 
-    def __init__(self, dev_layers: list, top: MerkleTree):
-        self.dev_layers = dev_layers      # leaf-up
-        self.top = top
+    def __init__(self, buf: torch.Tensor):
+        self.layers = groestl_cuda.split_layers(buf)      # leaf-up, device views
+        self.n_dev = next(k for k, layer in enumerate(self.layers)
+                          if layer.shape[0] <= TOP_COPY_ROWS)
+        # layers n_dev.. on the host: the buffer's last rows, themselves a
+        # stacked tree
+        top_rows = 2 * self.layers[self.n_dev].shape[0] - 1
+        self.top = groestl_cuda.split_layers(_digests_to_np(buf[buf.shape[0] - top_rows:]))
         self._layer_cache: dict[int, np.ndarray] = {}
 
     @property
     def root(self) -> bytes:
-        return self.top.root
+        return self.top[-1][0].tobytes()
 
     @property
     def depth(self) -> int:
-        return len(self.dev_layers) + self.top.depth
+        return len(self.layers) - 1
 
     def layer_np(self, k: int) -> np.ndarray:
         """Layer k (leaf = 0) as (N, 32) uint8 host rows."""
-        n_dev = len(self.dev_layers)
-        if k >= n_dev:
-            return self.top.layers[k - n_dev]
+        if k >= self.n_dev:
+            return self.top[k - self.n_dev]
         if k not in self._layer_cache:
-            self._layer_cache[k] = _digests_to_np(self.dev_layers[k])
+            self._layer_cache[k] = _digests_to_np(self.layers[k])
         return self._layer_cache[k]
 
     def branches_many(self, indices: list[int], to_layer: int) -> list[list[bytes]]:
-        """Sibling paths for many leaves: the sibling rows of every device
-        layer are gathered on the device and cross to the host in one copy."""
-        n_dev = min(len(self.dev_layers), to_layer)
+        """Sibling paths for many leaves: the sibling rows of every layer below
+        the top are gathered on the device and cross to the host in one copy."""
+        n_dev = min(self.n_dev, to_layer)
         out = [[] for _ in indices]
         if n_dev:
-            dev = self.dev_layers[0].device
+            dev = self.layers[0].device
             rows = _digests_to_np(torch.cat([
-                self.dev_layers[k][torch.tensor([(i >> k) ^ 1 for i in indices], device=dev)]
+                self.layers[k][torch.tensor([(i >> k) ^ 1 for i in indices], device=dev)]
                 for k in range(n_dev)]))
             for k in range(n_dev):
                 for q in range(len(indices)):

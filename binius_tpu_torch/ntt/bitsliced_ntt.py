@@ -217,7 +217,7 @@ def _stage_plain(plan: _Plan, st: _Stage, planes: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_cuda_plan(plan: _Plan, planes: torch.Tensor, name: str) -> None:
-    cuda_lib.check(planes, name, ndim=2)
+    cuda_lib.check(planes, name, ndim=2, align=16)  # 16-byte copies in and out
     if plan.tl != 5 or plan.dl < 5:
         raise NotImplementedError(f"{name}: the kernel takes B32 twiddles on data >= B32")
     if tuple(planes.shape) != (1 << plan.dl, plan.n_words):
@@ -235,7 +235,10 @@ def ntt_local(plan: _Plan, first: int, planes: torch.Tensor,
             planes = _stage_plain(plan, st, planes, tw[k])
         return planes
     _check_cuda_plan(plan, planes, "ntt_local")
-    cuda_lib.check(tw, "ntt_local tw", ndim=2)
+    cuda_lib.check(tw, "ntt_local tw", ndim=2, align=16)
+    if plan.tile % 4 or tuple(tw.shape) != (plan.n_local, plan.n_words):
+        raise ValueError(f"ntt_local: tile {plan.tile} (16-byte copies) or twiddles "
+                         f"{tuple(tw.shape)} do not fit the kernel")
     meta = _local_meta(plan, first, planes.device)
     cuda_lib.call("k3_ntt_local", planes.data_ptr(), tw.data_ptr(), meta.data_ptr(),
                   len(stages), plan.n_words, 1 << (plan.dl - 5), plan.tile,

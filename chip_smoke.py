@@ -6,9 +6,9 @@ check them.
 
 1. Prints the card (nvidia-smi name and power limit) and the versions.
 2. Builds the kernels from binius_tpu_torch/csrc (nvcc, sm_90a) and times it.
-   The ptxas report (registers, spills; K1, K2, K4 and K5 must not spill),
-   the SASS instruction counts of K1 and K5, and the card figures the
-   bounds use.
+   The ptxas report (registers, spills; no function of K1 and K2 and no
+   kernel of K3-K6 may spill, K3 in either direction), the SASS instruction
+   counts of K1, K3, K5 and K6, and the card figures the bounds use.
 3. One phase per kernel (K1-K6) at the shapes of the main path: the
    kernel's output against its plain PyTorch version on the same inputs
    (bit-equal: every operation is exact over GF(2)), the kernel's and the
@@ -18,20 +18,25 @@ check them.
    a ragged 2^22 - 7 elements; B128 also at a sixteenth of the size from
    which it takes its persistent kernel, the same four cases. K4 (cross
    stages fused in runs) forward at the commit's plan and at a plan of two
-   runs, inverse at a plan of five cross stages. K5 (both of its kernels)
-   at the opening's four leaf shapes, at a ragged leaf count and at blobs
-   of 16 and 56 bytes.
+   runs, inverse at a plan of five cross stages. K3 at the commit's plan,
+   at a plan whose tile is below 1024 words, and inverse at 2^15 words.
+   K5 (both of its kernels) at the opening's four leaf shapes, at a ragged
+   leaf count and at blobs of 16 and 56 bytes. K6 at the opening's four
+   tree shapes (2^19, 2^15, 2^11 and 2 leaves), every layer to the root,
+   with its tail from several level sizes, the wrapper's among them.
 4. The commit: the u32_add witness at 2^log_rows rows from --seed,
    committed with `piop.commit` on the card, its launches counted (K4 one
-   per run of cross stages, K5 one); its root
-   against the same commit composed from the plain versions; at 2^16 rows
-   the root against a golden root computed by the JAX package; the warm
-   commit time and its split.
+   per run of cross stages, K5 one, K6 as `tree_launches` says); its
+   codeword and every tree layer against the same commit composed from the
+   plain versions; at 2^16 rows the root against a golden root computed by
+   the JAX package; the warm commit time and its split.
 5. The opening (the main path): one evaluation claim per committed column
    at a point drawn after the witness, proven by commit, `ring_switch.prove`
    and `piop.prove`, with every launch counter set to 0 just before and read
-   just after; the port's verifiers accept the proof and reject it with one
-   byte flipped; the warm time (median of 3) and its split.
+   just after, and no Grøstl compression on the host (a counter around
+   `groestl.compress_pairs_t`); the port's verifiers accept the proof and
+   reject it with one byte flipped; the warm time (median of 3) and its
+   split.
 6. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
    plain versions (on the CPU) against the kernel path, byte for byte.
@@ -54,7 +59,6 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 # The JAX package's `piop.commit` root for u32_add_columns(16, seed=0),
@@ -124,13 +128,15 @@ def mul_gates(level: int) -> int:
 
 
 def ntt_ops(plan, stages) -> int:
-    """Gate count of the butterfly stages: per (pair or intra-word word) and
-    group, the B32 network, 32 mask expansions of 3 ops, and the XORs."""
+    """Gate count of the butterfly stages: per network and group, the B32
+    network, 32 mask expansions of 3 ops, and the XORs. A word-aligned stage
+    runs one network per word pair; an intra-word stage scales only the v
+    half of each word, so two words' v halves make one network."""
     groups = 1 << (plan.dl - 5)
     ops = 0
     for st in stages:
         if st.d_elems < 32:
-            ops += plan.n_words * groups * (mul_gates(5) + 96 + 32 * 8)
+            ops += plan.n_words // 2 * groups * (mul_gates(5) + 96 + 2 * 32 * 8)
         else:
             ops += plan.n_words // 2 * groups * (mul_gates(5) + 96 + 64)
     return ops
@@ -280,8 +286,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from binius_tpu_torch import cuda_lib
     from binius_tpu_torch.fields import bitslice, bitslice_cuda, tower
-    from binius_tpu_torch.hash import groestl_cuda
-    from binius_tpu_torch.merkle.tree import MerkleTree, _MIN_DEVICE_ROWS
+    from binius_tpu_torch.hash import groestl, groestl_cuda
+    from binius_tpu_torch.merkle.tree import DeviceMerkleTree
     from binius_tpu_torch.ntt import bitsliced_ntt as bn
     from binius_tpu_torch.protocols import fri, piop, ring_switch
     from binius_tpu_torch.transcript.transcript import ProverTranscript
@@ -312,14 +318,17 @@ def main() -> int:
     for (src, _), v in spills.items():
         per_src[src] = per_src.get(src, 0) + v
     log(f"ptxas spill bytes (stores + loads) per source: {per_src}")
-    # every K1 and K2 function, and K4's and K5's kernels, must not spill
-    for what in ("tower_mul.cu", "transpose32.cu", "ntt_cross_kernel", "leaf_kernel",
-                 "leaf_lanes_kernel"):
+    # no K1 or K2 function and no kernel of K3-K6 (both directions of the
+    # NTT's) may spill
+    for what, n_fn in (("tower_mul.cu", 1), ("transpose32.cu", 1), ("ntt_local_kernel", 2),
+                       ("ntt_cross_kernel", 2), ("leaf_kernel", 1), ("leaf_lanes_kernel", 1),
+                       ("pairs_kernel", 1), ("tail_kernel", 1)):
         hits = {k: v for k, v in spills.items() if k[0] == what or what in k[1]}
-        if not hits or any(hits.values()):
+        if len(hits) < n_fn or any(hits.values()):
             raise AssertionError(f"{what}: ptxas reports spills or no report ({hits})")
     cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
-    for fn, c in sass_counts(cuobjdump, so, r"mul\w*_kernel|leaf\w*_kernel").items():
+    for fn, c in sass_counts(cuobjdump, so, r"mul\w*_kernel|ntt_local_kernel|leaf\w*_kernel|"
+                                            r"pairs_kernel|tail_kernel").items():
         log(f"  sass: {fn}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
     rates = card_rates()
     log("bounds: HBM %.2f TB/s; logic %d SMs x %.0f MHz (max SM clock) x %d results/clock/SM x "
@@ -471,21 +480,46 @@ def main() -> int:
                label=f"{label}, shape {shape_k}, W {p_k.n_words}, {n_k} stages in runs {runs_k}")
         del got, pl
 
-    # K3: the fused trailing stages, one launch
-    def local_k(x):
-        return bn.ntt_local(plan, first, x, tw[first:])
+    # K3: the fused trailing stages (leading, inverse), one launch. The
+    # commit's plan (the row), a plan whose tile is below 1024 words (the
+    # 2^13-element transform at the commit's batch: every stage local), and
+    # inverse at the 2^15-word plan of K4's inverse check. Bound: the planes
+    # read and written once, the stages' twiddle rows read once.
+    def local_first(p_):
+        return 0 if p_.inverse else len(p_.stages) - p_.n_local
 
-    def local_p(x):
-        for k, st in enumerate(local):
-            x = bn._stage_plain(plan, st, x, tw[first + k])
+    def local_k(p_, tw_, x):
+        f = local_first(p_)
+        return bn.ntt_local(p_, f, x, tw_[f:f + p_.n_local])
+
+    def local_p(p_, tw_, x):
+        f = local_first(p_)
+        for si in range(f, f + p_.n_local):
+            x = bn._stage_plain(p_, p_.stages[si], x, tw_[si])
         return x
 
-    planes_out = local_k(after_cross.clone())
-    report("k3_ntt_local", "binius_tpu_torch/csrc/ntt.cu",
-           "binius_tpu/ntt/bitsliced_ntt.py:258",
-           planes_out, local_p(after_cross), local_k, local_p,
-           n_bytes=2 * planes_k.numel() * 4 + len(local) * plan.n_words * 4,
-           n_ops=ntt_ops(plan, local), setup=after_cross.clone)
+    def check_local(p_, tw_, pl, label, row=False):
+        cuda_lib.reset_launches()
+        got = local_k(p_, tw_, pl.clone())
+        torch.cuda.synchronize()
+        if dict(cuda_lib.launches) != {**dict.fromkeys(cuda_lib.KERNELS, 0), "k3_ntt_local": 1}:
+            raise AssertionError(f"K3 {label}: launches {cuda_lib.launches}")
+        f = local_first(p_)
+        report("k3_ntt_local", "binius_tpu_torch/csrc/ntt.cu",
+               "binius_tpu/ntt/bitsliced_ntt.py:258", got, local_p(p_, tw_, pl),
+               lambda x: local_k(p_, tw_, x), lambda x: local_p(p_, tw_, x),
+               n_bytes=2 * pl.numel() * 4 + p_.n_local * p_.n_words * 4,
+               n_ops=ntt_ops(p_, p_.stages[f:f + p_.n_local]), setup=pl.clone, row=row,
+               label=f"{label}, W {p_.n_words}, tile {p_.tile}, {p_.n_local} stages")
+        return got
+
+    planes_out = check_local(plan, tw, after_cross, "forward, commit plan", row=True)
+    for label, (shape_k, skip_k, inv_k) in (
+            ("forward, small tile", ((params.log_batch_size, 9, 0), 1, False)),
+            ("inverse", (inv_shape, 0, True))):
+        p_k, tw_np_k = bn._make_plan(dom, fri.LEVEL, shape_k, 0, 0, skip_k, inv_k)
+        check_local(p_k, bn._dev_tw(p_k, tw_np_k, dev),
+                    planes_k[:, :p_k.n_words].contiguous(), label)
 
     # K5: leaf digests, one launch per tree. Both kernels (16 lanes per
     # leaf, one thread per leaf; the wrapper picks by leaf count,
@@ -542,22 +576,54 @@ def main() -> int:
     k5_shape(rand_words((1001, 4)), 0, "16-byte blobs")
     k5_shape(rand_words((999, 14)), 0, "56-byte blobs")
 
-    # K6: the device levels down to _MIN_DEVICE_ROWS rows, one launch each
-    n_dev = (n_leaves.bit_length() - 1) - (_MIN_DEVICE_ROWS.bit_length() - 1)
+    # K6: every level of a tree to the root, one launch per wide level and
+    # one for the tail (groestl_cuda.tree_launches), at the opening's four
+    # tree shapes: the commit's leaf digests, then random digests for the
+    # FRI oracles' 2^15, 2^11 and 2 leaves (one pair: the tail alone). Every
+    # layer against `pairs_plain` level by level, with the tail starting
+    # from every level size (TAIL_PAIRS a power of two; 0 is every level
+    # its own launch), and the launches per tree asserted. Bound per tree: every
+    # pair's 64 bytes read and 32 written once, and its 10 rounds. Trees
+    # below 2^12 leaves are timed over 20 back-to-back builds.
+    def k6_tree(leaf_dig, label, row=False):
+        n_l = leaf_dig.shape[0]
+        want = [leaf_dig]
+        while want[-1].shape[0] > 1:
+            want.append(groestl_cuda.pairs_plain(want[-1]))
+        buf = torch.empty((2 * n_l - 1, 8), dtype=torch.int32, device=dev)
+        buf[:n_l] = leaf_dig
+        pick = groestl_cuda.TAIL_PAIRS
+        picked = groestl_cuda.tree_launches(n_l)
+        splits = {}  # distinct launch lists -> the least TAIL_PAIRS giving each
+        for tail in (0,) + tuple(1 << k for k in range(19)):
+            groestl_cuda.TAIL_PAIRS = tail
+            splits.setdefault(tuple(groestl_cuda.tree_launches(n_l)), tail)
+        for launches, tail in splits.items():
+            groestl_cuda.TAIL_PAIRS = tail
+            buf[n_l:] = 0
+            cuda_lib.reset_launches()
+            groestl_cuda.pair_levels(buf)
+            torch.cuda.synchronize()
+            n_launch = len(launches)
+            if dict(cuda_lib.launches) != {**dict.fromkeys(cuda_lib.KERNELS, 0),
+                                           "k6_groestl_pairs": n_launch}:
+                raise AssertionError(f"K6 {label}: launches {cuda_lib.launches}, "
+                                     f"want {n_launch}")
+            report("k6_groestl_pairs", "binius_tpu_torch/csrc/groestl.cu",
+                   "binius_tpu/hash/groestl_pallas.py:200",
+                   groestl_cuda.split_layers(buf), want,
+                   lambda _: groestl_cuda.pair_levels(buf),
+                   lambda _: groestl_cuda.tail_plain(leaf_dig),
+                   n_bytes=(n_l - 1) * 96, n_ops=(n_l - 1) * 10 * GROESTL_ROUND_OPS,
+                   label=f"{label}: {n_l} leaves, tail from {tail} pairs, {n_launch} launches"
+                         f"{' (the wrapper picks it)' if list(launches) == picked else ''}",
+                   row=row and list(launches) == picked, inner=1 if n_l > 1 << 12 else 20)
+        groestl_cuda.TAIL_PAIRS = pick
 
-    def levels(fn):
-        out = [leaves_k]
-        for _ in range(n_dev):
-            out.append(fn(out[-1]))
-        return out[1:]
-
-    n_pairs = sum(n_leaves >> (k + 1) for k in range(n_dev))
-    report("k6_groestl_pairs", "binius_tpu_torch/csrc/groestl.cu",
-           "binius_tpu/hash/groestl_pallas.py:200",
-           levels(groestl_cuda.pairs_kernel), levels(groestl_cuda.pairs_plain),
-           lambda _: levels(groestl_cuda.pairs_kernel),
-           lambda _: levels(groestl_cuda.pairs_plain),
-           n_bytes=n_pairs * 96, n_ops=n_pairs * 10 * GROESTL_ROUND_OPS)
+    k6_tree(leaves_k, "commit", row=True)
+    for n_l, label in ((1 << 15, "FRI oracle 1"), (1 << 11, "FRI oracle 2"),
+                       (2, "FRI oracle 3")):
+        k6_tree(rand_words((n_l, 8)), label)
 
     phases.done("K2-K6")
 
@@ -572,9 +638,12 @@ def main() -> int:
     missing = [k for k, v in counts.items() if v == 0 and k != "k1_tower_mul"]
     if missing:
         raise AssertionError(f"kernels not launched on the commit: {missing}")
-    if counts["k4_ntt_cross"] != len(runs) or counts["k5_groestl_leaf"] != 1:
+    k6_commit = len(groestl_cuda.tree_launches(n_leaves))
+    if (counts["k4_ntt_cross"] != len(runs) or counts["k5_groestl_leaf"] != 1
+            or counts["k6_groestl_pairs"] != k6_commit):
         raise AssertionError(f"commit: K4 {counts['k4_ntt_cross']} launches for {len(runs)} "
-                             f"runs, K5 {counts['k5_groestl_leaf']} launches for one tree")
+                             f"runs, K5 {counts['k5_groestl_leaf']} for one tree, K6 "
+                             f"{counts['k6_groestl_pairs']} for {k6_commit}")
 
     # (a) the same commit composed from the plain versions, on the card
     p = bitslice.to_bitsliced(7, torch.cat([msg_main] * (1 << params.log_inv_rate)))
@@ -584,9 +653,10 @@ def main() -> int:
     if not torch.equal(cw_plain, cw_main):
         raise AssertionError("slice: kernel codeword != plain codeword")
     dig = groestl_cuda.leaf_hash_plain(cw_plain, log_coset, blob_len)
-    for _ in range(n_dev):
-        dig = groestl_cuda.pairs_plain(dig)
-    root_plain = MerkleTree.build(dig.cpu().numpy().view(np.uint8).reshape(-1, 32)).root
+    layers_plain = torch.cat([dig, groestl_cuda.tail_plain(dig)])
+    if not torch.equal(torch.cat(tree.layers), layers_plain):
+        raise AssertionError("slice: kernel tree layers != plain tree layers")
+    root_plain = layers_plain[-1].cpu().numpy().tobytes()
     if root_plain != tree.root:
         raise AssertionError(f"slice: kernel root {tree.root.hex()} != plain {root_plain.hex()}")
     log(f"root 2^{args.log_rows} rows, seed {args.seed}: {tree.root.hex()} (= plain path)")
@@ -599,7 +669,7 @@ def main() -> int:
     log(f"root 2^{GOLDEN_LOG_ROWS} rows, seed {GOLDEN_SEED}: {g_root} (= JAX golden)")
 
     # warm commit time and its split (median of 3)
-    splits = {k: [] for k in ("total", "merge", "encode", "leaf_hash", "pair_levels", "host_top")}
+    splits = {k: [] for k in ("total", "merge", "encode", "leaf_hash", "pair_levels", "top_copy")}
     for _ in range(3):
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -608,19 +678,19 @@ def main() -> int:
         ev[1].record()
         c = fri.rs_encode(params, m)
         ev[2].record()
-        outs = [groestl_cuda.leaf_hash_kernel(c, log_coset, blob_len)]
+        buf = torch.empty((2 * n_leaves - 1, 8), dtype=torch.int32, device=dev)
+        groestl_cuda.leaf_hash_kernel(c, log_coset, blob_len, out=buf[:n_leaves])
         ev[3].record()
-        for _ in range(n_dev):
-            outs.append(groestl_cuda.pairs_kernel(outs[-1]))
+        groestl_cuda.pair_levels(buf)
         ev[4].record()
-        top_rows = outs[-1].cpu().numpy()  # waits for the device
+        torch.cuda.synchronize()
         t_dev = time.perf_counter()
-        MerkleTree.build(top_rows.view(np.uint8).reshape(-1, 32))
+        DeviceMerkleTree(buf)  # the top's one copy to the host
         t_end = time.perf_counter()
         for k, (a, b) in zip(("merge", "encode", "leaf_hash", "pair_levels"),
                              zip(ev, ev[1:])):
             splits[k].append(a.elapsed_time(b))
-        splits["host_top"].append((t_end - t_dev) * 1e3)
+        splits["top_copy"].append((t_end - t_dev) * 1e3)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         piop.commit(params, meta, packed)
@@ -631,15 +701,40 @@ def main() -> int:
         args.log_rows, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
     phases.done("commit")
 
-    # 5. the opening, the main path: commit, ring switch, PIOP; counted
+    # 5. the opening, the main path: commit, ring switch, PIOP; counted, with
+    # the host's Grøstl compressions and the trees' leaf counts recorded
+    host_compressions = [0]
+    compress_pairs_t, tree_levels = groestl.compress_pairs_t, groestl_cuda.tree_levels
+    trees = []
+
+    def counted_compress(pairs):
+        host_compressions[0] += 1
+        return compress_pairs_t(pairs)
+
+    def recorded_tree(cw_, log_coset_, blob_len_):
+        trees.append(cw_.shape[0] >> log_coset_)
+        return tree_levels(cw_, log_coset_, blob_len_)
+
+    groestl.compress_pairs_t, groestl_cuda.tree_levels = counted_compress, recorded_tree
     open_commitment(inst)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
+    host_compressions[0] = 0
+    trees.clear()
     proof = open_commitment(inst)
     torch.cuda.synchronize()
     counts = dict(cuda_lib.launches)
+    groestl.compress_pairs_t, groestl_cuda.tree_levels = compress_pairs_t, tree_levels
     log(f"launches on the opening (its commit included): {counts}")
+    k6_opening = sum(len(groestl_cuda.tree_launches(n)) for n in trees)
+    log(f"trees on the opening (leaves): {trees}; K6 launches {k6_opening}; host Grøstl "
+        f"compressions {host_compressions[0]}")
+    if host_compressions[0]:
+        raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
+    if counts["k6_groestl_pairs"] != k6_opening or counts["k5_groestl_leaf"] != len(trees):
+        raise AssertionError(f"K6 launched {counts['k6_groestl_pairs']} times for {k6_opening},"
+                             f" K5 {counts['k5_groestl_leaf']} for {len(trees)} trees")
     log(f"opening: {len(proof)} proof bytes, sha256 {hashlib.sha256(proof).hexdigest()}, peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     missing = [k for k, v in counts.items() if v == 0]

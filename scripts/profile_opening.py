@@ -1,6 +1,8 @@
 """Profile one warm opening of the u32_add commitment on the card.
 
     python3 scripts/profile_opening.py [--log-rows 22] [--seed 0] [--k1-designs]
+    python3 scripts/profile_opening.py --against parent
+
 
 Builds the instance of `chip_smoke.py` (the u32_add witness, one claim per
 column at the point drawn after it), runs one opening as a warm-up, then
@@ -10,10 +12,15 @@ around work that ends in `torch.cuda.synchronize()`), the device time by
 kernel name (sum, calls, mean), the sum over all device kernels and the
 device's idle share of the wall time (one stream, so kernels do not
 overlap), the port's launch counts for the same opening, K1's launches
-by level and batch size with their device time, and each launch of K4
-(its stages), K5 (leaves, blob bytes, kernel) and K6 (pairs) with its
-device time. A launch's device time comes from the profiler's events of
+by level and batch size with their device time, and each launch of K3
+and K4 (stages, words), K5 (leaves, blob bytes, kernel) and K6 (pairs,
+kernel: one wide level or the tail to the root) with its device time. A launch's device time comes from the profiler's events of
 its kernel, matched in order to the launches the wrappers made.
+
+--against DIR compares two trees on one card: DIR holds another checkout
+of the repo (for example `git archive <commit>` unpacked into `parent/`,
+which .gitignore lists); this script is copied into it and run there and
+here, each in a process of its own, in the order DIR, here, here, DIR.
 
 --k1-designs profiles two more openings, one with every B128 product on
 K1's one-tile-per-block kernel and one with every B128 product on its
@@ -27,6 +34,7 @@ import argparse
 import collections
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -40,7 +48,20 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")
+    ap.add_argument("--against", metavar="DIR")
     args = ap.parse_args()
+    if args.against:
+        here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        other = os.path.abspath(args.against)
+        shutil.copy(os.path.abspath(__file__), os.path.join(other, "scripts", "profile_opening.py"))
+        rc = 0
+        for label, root in (("parent", other), ("change", here), ("change", here),
+                            ("parent", other)):
+            print(f"==== {label}: {root}", flush=True)
+            rc |= subprocess.run([sys.executable, os.path.join(root, "scripts", "profile_opening.py"),
+                                  "--log-rows", str(args.log_rows), "--seed", str(args.seed),
+                                  "--top", str(args.top)], cwd=root).returncode
+        return rc
     if not torch.cuda.is_available():
         print("profile_opening: no CUDA device", file=sys.stderr)
         return 2
@@ -55,12 +76,12 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     inst = chip_smoke.instance(args.log_rows, args.seed, torch.device("cuda"))
 
-    # the launches of K1, K4, K5 and K6 in order: (wrapper name, arguments)
+    # the launches of K1 and K3-K6 in order: (wrapper name, arguments)
     calls = []
     launch = cuda_lib.call
 
     def recording_call(name, *args):
-        if name[:2] in ("k1", "k4", "k5", "k6"):
+        if name[:2] in ("k1", "k3", "k4", "k5", "k6"):
             calls.append((name, args))
         launch(name, *args)
 
@@ -79,9 +100,11 @@ def main() -> int:
         return prof, wall_ms, dict(cuda_lib.launches), list(calls)
 
     # device kernel names of each wrapper's kernels (this tree's and its
-    # parent's: K4 was one launch per stage, K5 one kernel)
-    kernel_names = {"k1": r"\bmul(128)?_kernel\b", "k4": r"\bntt_(pair|cross)_kernel\b",
-                    "k5": r"\bleaf\w*_kernel\b", "k6": r"\bpairs_kernel\b"}
+    # parents': K4 was one launch per stage, K5 one kernel, K6 one launch per
+    # level)
+    kernel_names = {"k1": r"\bmul(128)?_kernel\b", "k3": r"\bntt_local_kernel\b",
+                    "k4": r"\bntt_(pair|cross)_kernel\b", "k5": r"\bleaf\w*_kernel\b",
+                    "k6": r"\b(pairs|tail)_kernel\b"}
 
     def matched(prof, calls, k):
         """[(launch arguments, device event)] of wrapper k's launches."""
@@ -104,8 +127,12 @@ def main() -> int:
         return sizes
 
     def per_launch(prof, calls):
-        """Each launch of K4, K5 and K6 with its device time."""
-        k4, k5, k6 = (matched(prof, calls, k) for k in ("k4", "k5", "k6"))
+        """Each launch of K3, K4, K5 and K6 with its device time."""
+        k3, k4, k5, k6 = (matched(prof, calls, k) for k in ("k3", "k4", "k5", "k6"))
+        print("K3 launches (stages, words, groups, device us):")
+        for args, ev in k3:
+            print(f"  {args[3]} stages, {args[4]} words, {args[5]} groups: "
+                  f"{ev.time_range.elapsed_us():.2f}")
         print("K4 launches (stages per launch, lowest word distance, device us):")
         for args, ev in k4:
             stages = args[5] if len(args) > 6 else 1  # k4_ntt_pair ran one stage
@@ -115,9 +142,10 @@ def main() -> int:
         for args, ev in k5:
             kernel = re.search(kernel_names["k5"], ev.name).group(0)
             print(f"  {args[1]} x {args[2] * 8} B, {kernel}: {ev.time_range.elapsed_us():.2f}")
-        print("K6 launches (pairs: device us): " + ", ".join(
-            f"{args[1]}: {ev.time_range.elapsed_us():.2f}" for args, ev in k6))
-        for k, launches in (("K4", k4), ("K5", k5), ("K6", k6)):
+        print("K6 launches (pairs, kernel: device us): " + ", ".join(
+            f"{args[1]} {re.search(kernel_names['k6'], ev.name).group(1)}: "
+            f"{ev.time_range.elapsed_us():.2f}" for args, ev in k6))
+        for k, launches in (("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6)):
             us = sum(ev.time_range.elapsed_us() for _, ev in launches)
             print(f"{k} device ms over its launches: {us / 1e3:.4f}")
 

@@ -44,6 +44,12 @@ def test_pairs_match_reference():
     assert np.array_equal(got, want)
     host = jg.compress_pairs(np.ascontiguousarray(d).view(np.uint8).reshape(-1, 64))
     assert np.array_equal(got.view(np.uint8).reshape(-1, 32), host)
+    # the tail: every level above the 32 pairs, stacked
+    levels = [host]
+    while levels[-1].shape[0] > 1:
+        levels.append(jg.compress_pairs(levels[-1].reshape(-1, 64)))
+    tail = to_reference(groestl_cuda.tail_kernel(from_reference(d, "cpu")))
+    assert np.array_equal(tail.view(np.uint8).reshape(-1, 32), np.concatenate(levels))
 
 
 @pytest.mark.parametrize("length", [0, 55, 64, 256])
