@@ -1,0 +1,96 @@
+"""Witness index utilities: materialize virtual oracle columns on a device.
+
+The port of `binius_tpu/constraint_system/witness.py`. A witness is a
+dict: oracle id -> (tower level, tensor), B1 columns bit-packed
+(`tower.P1`) where they are long enough. Ported kinds: transparent,
+repeating, linear combination, shifted and composite oracles; packed,
+projected and zero-padded oracles raise `NotImplementedError` (no u32_add
+system reaches them).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..fields import tower
+from ..protocols import shift_ind
+from . import oracle as om
+
+LEVEL = 7
+
+
+def _int_level(v: int) -> int:
+    """Smallest tower level whose subfield holds the canonical int `v`."""
+    for lvl in range(8):
+        if v < (1 << (1 << lvl)):
+            return lvl
+    raise ValueError(f"not a B128 element: {v}")
+
+
+def _device(witness: dict):
+    return next(iter(witness.values()))[1].device
+
+
+def materialize(oracles: om.OracleSet, witness: dict, oid: int):
+    """(level, data) of an oracle, computing a virtual oracle from its inner
+    witnesses and caching it into `witness` (bit-packed where it is B1).
+    Returns the unpacked element-per-word view of a B1 column."""
+    if oid in witness:
+        return tower.resolve_p1(*witness[oid])
+    o = oracles[oid]
+    if o.variant == om.TRANSPARENT:
+        out = o.transparent.mle(_device(witness))
+    elif o.variant == om.REPEATING:
+        ilvl, idata = materialize(oracles, witness, o.inner[0])
+        out = (ilvl, torch.cat([idata] * (1 << o.log_degree)))
+    elif o.variant == om.LINEAR_COMBINATION:
+        inner = [materialize(oracles, witness, iid) for iid in o.inner]
+        dev = inner[0][1].device if inner else _device(witness)
+        lc_level = max([_int_level(o.lc_offset), *(_int_level(c) for c in o.lc_coeffs),
+                        *(ilvl for ilvl, _ in inner)])
+        if lc_level <= 5:
+            # the combination closes in a subfield: materialize it there
+            acc = tower.full(lc_level, (1 << o.n_vars,), o.lc_offset, dev)
+            for (ilvl, idata), coeff in zip(inner, o.lc_coeffs):
+                x = tower.embed(ilvl, lc_level, idata)
+                if coeff != 1:
+                    x = tower.mul(lc_level, x, tower.full(lc_level, (), coeff, dev))
+                acc = acc ^ x
+            out = (lc_level, acc)
+        else:
+            acc = tower.full(LEVEL, (1 << o.n_vars,), o.lc_offset, dev)
+            for (ilvl, idata), coeff in zip(inner, o.lc_coeffs):
+                c = tower.full(LEVEL, (), coeff, dev)
+                acc = acc ^ tower.scale_subfield(ilvl, LEVEL, idata, c)
+            out = (LEVEL, acc)
+    elif o.variant == om.SHIFTED:
+        inner_id = o.inner[0]
+        if inner_id not in witness:
+            materialize(oracles, witness, inner_id)
+        ilvl, idata = witness[inner_id]
+        if ilvl == tower.P1 and o.shift_block_bits == 5:
+            # one block per packed word: shift the words
+            witness[oid] = (tower.P1, shift_ind.apply_shift_words(
+                o.shift_variant, o.shift_offset, idata))
+            return tower.resolve_p1(*witness[oid])
+        ilvl, idata = tower.resolve_p1(ilvl, idata)
+        out = (ilvl, shift_ind.apply_shift_device(
+            ilvl, o.shift_variant, o.shift_block_bits, o.shift_offset, idata))
+    elif o.variant == om.COMPOSITE:
+        inner = [materialize(oracles, witness, iid) for iid in o.inner]
+        expr = getattr(o.composite, "expr", o.composite)
+        comp_level = max([expr.binary_tower_level(), *(ilvl for ilvl, _ in inner)])
+        if comp_level <= 5:
+            # the composition closes in a subfield: evaluate and store there
+            out = (comp_level, expr.evaluate(
+                comp_level, [tower.embed(ilvl, comp_level, d) for ilvl, d in inner]))
+        else:
+            out = (LEVEL, expr.evaluate(
+                LEVEL, [tower.embed(ilvl, LEVEL, d) if ilvl < LEVEL else d
+                        for ilvl, d in inner]))
+    elif o.variant in (om.PACKED, om.PROJECTED, om.ZERO_PADDED):
+        raise NotImplementedError(f"materializing a {o.variant} oracle is not ported")
+    else:
+        raise KeyError(f"cannot materialize oracle {oid} ({o.variant})")
+    witness[oid] = tower.maybe_pack_b1(*out)
+    return out

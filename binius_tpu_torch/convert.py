@@ -48,3 +48,11 @@ def fri_params_from_reference(p):
     from .protocols.fri import FRIParams
     return FRIParams(int(p.log_dim), int(p.log_inv_rate), int(p.log_batch_size),
                      tuple(int(a) for a in p.fold_arities), int(p.n_test_queries))
+
+
+def witness_from_reference(witness: dict, device=None) -> dict:
+    """The JAX package's witness (oracle id -> (level, uint32 array)) -> the
+    port's (oracle id -> (level, int32 tensor)) with the same bits and
+    levels (bit-packed B1 columns stay packed: `tower.P1` is -1 in both)."""
+    return {int(oid): (int(lvl), from_reference(np.asarray(data), device))
+            for oid, (lvl, data) in witness.items()}

@@ -160,7 +160,18 @@ def invert_py(level: int, a: int) -> int:
     return b0 | (b1 << h)
 
 
-mul, square, invert = mul_py, square_py, invert_py
+def pow_py(level: int, a: int, e: int) -> int:
+    r = 1
+    base = a
+    while e:
+        if e & 1:
+            r = mul_py(level, r, base)
+        base = square_py(level, base)
+        e >>= 1
+    return r
+
+
+mul, square, invert, pow = mul_py, square_py, invert_py, pow_py
 
 
 # -- B8 tables for the device base case (levels <= 3) -----------------------

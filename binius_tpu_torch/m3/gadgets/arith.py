@@ -1,13 +1,24 @@
-"""Witness values of the `u32_add` gadget (host, numpy).
+"""The u32_add gadget.
 
-Counterpart of `U32Add.populate` in `binius_tpu/m3/gadgets/arith.py`: with
-one u32 per row, a B1 column's P1 words are the row values themselves, so
-the four committed columns xin, yin, zout and cout are uint32 arrays.
+The port of `U32Add` of `binius_tpu/m3/gadgets/arith.py` (ripple-carry
+addition over vertically packed B1 columns, one u32 per row), with the
+host witness values of its committed columns (`u32_add_populate`) and the
+seeded instances that `chip_smoke.py` and the tests prove.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+from ...math.arith import ArithExpr
+from ...protocols import shift_ind
+from ..builder.table import Col, M3ConstraintSystem, TableBuilder
+from ..builder.witness import WitnessIndex
+
+V = ArithExpr.var
+LOG_U32 = 5
 
 
 def u32_add_populate(x: np.ndarray, y: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -21,12 +32,74 @@ def u32_add_populate(x: np.ndarray, y: np.ndarray) -> tuple[np.ndarray, np.ndarr
     return (full & np.uint64(0xFFFFFFFF)).astype(np.uint32), cout.astype(np.uint32)
 
 
+@dataclasses.dataclass
+class U32Add:
+    """zout = xin + yin (mod 2^32), through carry columns. Constraints over
+    the B1 bit columns (32 values per row):
+      cin = cout << 1 within the row (the carry into bit i is out of i-1)
+      (xin + cin)(yin + cin) + cin + cout = 0      [carry generation]
+      xin + yin + cin + zout = 0                   [sum]
+    """
+
+    xin: Col
+    yin: Col
+    zout: Col
+    cout: Col
+    cin: Col
+
+    @staticmethod
+    def build(t: TableBuilder, name: str, xin: Col, yin: Col) -> "U32Add":
+        zout = t.add_committed(f"{name}.zout", 0, LOG_U32)
+        cout = t.add_committed(f"{name}.cout", 0, LOG_U32)
+        cin = t.add_shifted(f"{name}.cin", cout, 1, LOG_U32, shift_ind.LOGICAL_LEFT)
+        x, y, ci, z, co = (V(i) for i in range(5))
+        t.assert_zero(f"{name}.carry", [xin, yin, cin, zout, cout],
+                      (x + ci) * (y + ci) + ci + co, group=name)
+        t.assert_zero(f"{name}.sum", [xin, yin, cin, zout, cout], x + y + ci + z, group=name)
+        return U32Add(xin, yin, zout, cout, cin)
+
+    def populate(self, tw, x_rows, y_rows) -> np.ndarray:
+        """Fill zout and cout from per-row u32 inputs; returns the sums."""
+        z, cout = u32_add_populate(np.asarray(x_rows, dtype=np.uint64),
+                                   np.asarray(y_rows, dtype=np.uint64))
+        tw.set_packed_ints(self.zout, z)
+        tw.set_packed_ints(self.cout, cout)
+        return z
+
+
+def u32_add_system(log_rows: int, xs, ys, device=None):
+    """The one-table u32_add system of 2^log_rows rows adding the u32 rows
+    xs and ys, and its witness on `device` (CUDA unless named): returns
+    (core system, witness)."""
+    m3 = M3ConstraintSystem()
+    t = m3.add_table("u32add")
+    xin = t.add_committed("xin", 0, LOG_U32)
+    yin = t.add_committed("yin", 0, LOG_U32)
+    adder = U32Add.build(t, "add", xin, yin)
+    core, omap = m3.compile([log_rows])
+    wi = WitnessIndex(m3, [log_rows])
+    tw = wi.table(0)
+    tw.set_packed_ints(xin, xs)
+    tw.set_packed_ints(yin, ys)
+    adder.populate(tw, xs, ys)
+    return core, wi.to_core_witness(core, omap, device)
+
+
+def u32_add_rows(log_rows: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """2^log_rows random u32 pairs drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)
+    y = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)
+    return x, y
+
+
 def u32_add_instance(log_rows: int, seed: int) -> tuple[list[np.ndarray], list[int]]:
     """The committed columns [xin, yin, zout, cout] of a 2^log_rows-row
     table with random inputs drawn from `seed`, as uint32 P1 words, and an
     evaluation point for them: log_rows + 5 B128 coordinates drawn from the
-    same generator after the witness (16 bytes each, little-endian), the
-    single point a zerocheck leaves its column claims at."""
+    same generator after the witness (16 bytes each, little-endian), a
+    stand-in for the point a zerocheck leaves its column claims at (the
+    opening's instance)."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)
     y = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)

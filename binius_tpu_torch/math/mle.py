@@ -98,3 +98,34 @@ def batched_evaluate_partial_high(level: int, stack: torch.Tensor, n_vars: int,
     d = stack.reshape(tower.elem_shape(level, (k, 1 << kh, 1 << keep)))
     p = tower.scale_subfield(level, LEVEL, d, eq[None, :, None, :])
     return LEVEL, tower.xor_reduce(p, 1)
+
+
+def batched_evaluate_partial_low(level: int, stack: torch.Tensor, n_vars: int,
+                                 coeffs: torch.Tensor, bind: int):
+    """Bind the low `bind` variables of k stacked multilinears with a B128
+    coefficient vector (an eq expansion or Lagrange coefficients)
+    (2^bind, 4): out[m, j] = sum_i coeffs[i] * stack[m, (j << bind) | i],
+    (k, 2^(n_vars - bind), 4) B128.
+
+    `level` may be `tower.P1`. For B1 data the sum is a GF(2) matrix
+    product of the data's bit rows with the coefficients' bits, taken as
+    exact float64 counts in row chunks; other levels scale the coefficients
+    by the subfield data."""
+    k = stack.shape[0]
+    kh = n_vars - bind
+    if level in (0, tower.P1):
+        cbits = tower.to_bits(LEVEL, coeffs)                 # (2^bind, 128)
+        jc = max(1, _GF2_CHUNK_ELEMS // (k << bind))
+        jc = min(1 << kh, max(1 << (jc.bit_length() - 1), 32 >> min(bind, 5)))
+        outs = []
+        for j0 in range(0, 1 << kh, jc):
+            if level == tower.P1:
+                bits = tower.unpack_b1(stack[:, (j0 << bind) // 32:((j0 + jc) << bind) // 32])
+            else:
+                bits = stack[:, j0 << bind:(j0 + jc) << bind]
+            counts = torch.matmul(bits.reshape(k, jc, 1 << bind).to(torch.float64), cbits)
+            outs.append(tower.from_bits(LEVEL, torch.remainder(counts, 2)))
+        return LEVEL, torch.cat(outs, dim=1)
+    d = stack.reshape(tower.elem_shape(level, (k, 1 << kh, 1 << bind)))
+    p = tower.scale_subfield(level, LEVEL, d, coeffs[None, None])
+    return LEVEL, tower.xor_reduce(p, 2)

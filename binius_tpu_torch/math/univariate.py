@@ -1,15 +1,20 @@
-"""Univariate evaluation domains and Lagrange interpolation (host).
+"""Univariate evaluation domains and Lagrange interpolation.
 
-The port's copy of the Python-int part of `binius_tpu/math/univariate.py`
-that the bivariate sumcheck reaches: round polynomials have degree 2, so
-interpolation runs on the host.
+The port of `binius_tpu/math/univariate.py` without its native-C path:
+`EvaluationDomain` (host interpolation of the sumcheck round polynomials)
+and the barycentric Lagrange evaluations of the univariate-skip
+zerocheck's domains, whose scans run as tower products on a device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
-from ..fields import scalar
+import torch
+
+from ..device import resolve
+from ..fields import scalar, tower
 from .binary_subspace import BinarySubspace
 
 
@@ -53,3 +58,65 @@ class EvaluationDomain:
             for d, c in enumerate(basis):
                 coeffs[d] ^= scalar.mul(value_level, w, c)
         return coeffs
+
+
+# ---------------------------------------------------------------------------
+# Barycentric Lagrange evaluation for the large univariate-skip domains
+# (d * 2^skip points): the weights are domain constants, and each challenge
+# costs O(n) products with two multiplicative scans.
+# ---------------------------------------------------------------------------
+
+def _points_level(points: tuple) -> int:
+    """Smallest tower level holding every point: the weights' products
+    close there (subfields embed as the integer identity)."""
+    top = max(points, default=0)
+    lvl = 0
+    while top >= 1 << (1 << lvl):
+        lvl += 1
+    return lvl
+
+
+@functools.lru_cache(maxsize=None)
+def barycentric_weights(points: tuple) -> tuple:
+    """w_i = 1 / prod_{j != i} (x_i + x_j) as ints."""
+    lvl = _points_level(points)
+    out = []
+    for i, xi in enumerate(points):
+        den = 1
+        for j, xj in enumerate(points):
+            if j != i:
+                den = scalar.mul(lvl, den, xi ^ xj)
+        out.append(scalar.invert(lvl, den))
+    return tuple(out)
+
+
+def _scan_mul(t: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive product scan of (n, 4) B128 elements in log2(n) steps."""
+    if reverse:
+        t = t.flip(0)
+    d = 1
+    while d < t.shape[0]:
+        t = torch.cat([t[:d], tower.mul(7, t[d:], t[:-d])])
+        d *= 2
+    return t.flip(0) if reverse else t
+
+
+def lagrange_evals_device(points: tuple, z: int, device=None) -> torch.Tensor:
+    """(n, 4) B128 tensor of the Lagrange basis evaluations L_i(z) over
+    `points` (canonical ints), from exclusive prefix and suffix products of
+    (z + x_j), so that z on a domain point needs no division."""
+    points = tuple(points)
+    dev = resolve(device)
+    xs = tower.from_ints(7, points, dev)
+    w = tower.from_ints(7, barycentric_weights(points), dev)
+    t = tower.from_ints(7, [z], dev) ^ xs
+    one = tower.full(7, (1,), 1, device=dev)
+    pre = torch.cat([one, _scan_mul(t, False)[:-1]])
+    suf = torch.cat([_scan_mul(t, True)[1:], one])
+    return tower.mul(7, w, tower.mul(7, pre, suf))
+
+
+def lagrange_evals_np(points: tuple, z: int) -> list[int]:
+    """The same Lagrange evaluations as ints, computed on the CPU (the
+    verifier's host path)."""
+    return tower.to_ints(7, lagrange_evals_device(points, z, "cpu"))

@@ -2,23 +2,28 @@
 
 Counterpart of `binius_tpu/ntt/additive_ntt.py`: `NTTDomain` (twiddles as
 normalized subspace polynomial evaluations, built on the host from
-Python-int tower arithmetic) and `AdditiveNTT`, whose transforms run on
-bit planes through `bitsliced_ntt` for every power-of-two batch of at
-least 32 elements with twiddles at B32 or below. The packed stage loop of
-the JAX package waits for the tower multiply. `forward_scalar` and
-`inverse_scalar` are the host oracles.
+Python-int tower arithmetic) and `AdditiveNTT`. A transform takes one of
+two paths by one rule (`bitsliced_ntt.supported`): the bitsliced path on
+bit planes (K2, K3 and K4 on the card) where its kernels fit the shape,
+twiddles at B32 or below, data at B32 or above and a power-of-two batch of
+at least 2^15 elements (the JAX package's dispatch threshold), and the
+packed stage loop otherwise, on either device: subfield-scalar butterflies
+over the (Z, Y, X) view with the twiddles kept at their own level, plain
+PyTorch as the JAX package's `_transform_jit` is plain XLA.
+`forward_scalar` and `inverse_scalar` are the host oracles.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
 
 from ..device import resolve
-from ..fields import scalar
+from ..fields import scalar, tower
 from ..math.binary_subspace import BinarySubspace
 
 
@@ -94,6 +99,9 @@ class NTTDomain:
         return out
 
 
+_STAGE_TW: dict = {}
+
+
 @dataclasses.dataclass(frozen=True)
 class AdditiveNTT:
     """Batched additive NTT over `domain` for data at tower level `data_level`
@@ -109,15 +117,56 @@ class AdditiveNTT:
                    coset: int, coset_bits: int, skip_rounds: int, inverse: bool,
                    device) -> torch.Tensor:
         from . import bitsliced_ntt
-        n = 1 << sum(shape)
-        if not bitsliced_ntt.supported(self.level, data_level, n):
-            raise NotImplementedError(
-                f"only the bitsliced transform is ported: twiddles <= B32, data >= "
-                f"twiddles and a power-of-two batch >= 32 (got tw level {self.level}, "
-                f"data level {data_level}, n {n})")
-        return bitsliced_ntt.transform(
-            self.domain, data.to(resolve(device)), data_level, shape, coset=coset,
-            coset_bits=coset_bits, skip_rounds=skip_rounds, inverse=inverse)
+        data = data.to(resolve(device))
+        n = tower.batch_shape(data_level, data)
+        if len(n) == 1 and n[0] == 1 << sum(shape) and bitsliced_ntt.supported(
+                self.level, data_level, n[0]):
+            return bitsliced_ntt.transform(
+                self.domain, data, data_level, shape, coset=coset,
+                coset_bits=coset_bits, skip_rounds=skip_rounds, inverse=inverse)
+        return self._stage_loop(data, data_level, shape, coset, coset_bits,
+                                skip_rounds, inverse)
+
+    def _stage_twiddles(self, log_y: int, coset: int, coset_bits: int, i: int,
+                        device) -> torch.Tensor:
+        """Stage i's twiddles at the domain's level, cached per device."""
+        key = (self.domain, log_y, coset, coset_bits, i, str(device))
+        if key not in _STAGE_TW:
+            base = self.domain.log_domain_size - (log_y + coset_bits)
+            assert base >= 0, "domain too small"
+            tw = self.domain.stage_twiddles_np(base + i, log_y - 1 - i, high_bits=coset)
+            if self.level <= 5:
+                tw = tw.astype(np.uint32)
+            _STAGE_TW[key] = tower.from_numpy(self.level, tw, device)
+        return _STAGE_TW[key]
+
+    def _stage_loop(self, data: torch.Tensor, data_level: int, shape: tuple,
+                    coset: int, coset_bits: int, skip_rounds: int,
+                    inverse: bool) -> torch.Tensor:
+        """Butterfly stages over the (Z, Y, X) view of `data`: every batch
+        shape whose element count is a multiple of 2^(log_x + log_y) (Z is
+        the rest, of any size); the result has the shape of `data`."""
+        log_x, log_y, _ = shape
+        tl, dl = self.level, data_level
+        X, Y = 1 << log_x, 1 << log_y
+        Z = math.prod(tower.batch_shape(dl, data)) // (X * Y)
+        stages = (range(0, log_y - skip_rounds) if inverse
+                  else range(log_y - skip_rounds - 1, -1, -1))
+        d = data
+        for i in stages:
+            blocks, inner = 1 << (log_y - 1 - i), 1 << i
+            view = d.reshape(tower.elem_shape(dl, (Z, blocks, 2, inner, X)))
+            u, v = view[:, :, 0], view[:, :, 1]
+            tw = self._stage_twiddles(log_y, coset, coset_bits, i, data.device)
+            t = tw[None, :, None, None]   # the twiddles stay at their own level
+            if inverse:
+                v = v ^ u
+                u = u ^ tower.scale_subfield(tl, dl, t, v)
+            else:
+                u = u ^ tower.scale_subfield(tl, dl, t, v)
+                v = v ^ u
+            d = torch.stack([u, v], dim=2)
+        return d.reshape(data.shape)
 
     def forward(self, data: torch.Tensor, data_level: int, shape: tuple[int, int, int],
                 coset: int = 0, coset_bits: int = 0, skip_rounds: int = 0,

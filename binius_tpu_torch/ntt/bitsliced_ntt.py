@@ -62,10 +62,17 @@ class _Plan:
 
 _PLAN_CACHE: dict = {}
 
+# the least batch the bitsliced path takes: one full K3 tile (2^15 elements)
+MIN_ELEMS = 32 * _TILE_WORDS
+
 
 def supported(tw_level: int, data_level: int, n: int) -> bool:
-    """Shapes the bitsliced transform takes."""
-    return tw_level <= 5 and data_level >= tw_level and n >= 32 and n & (n - 1) == 0
+    """Shapes the bitsliced transform takes: twiddles at B32 or below, data
+    at B32 or above them, and a power-of-two batch of at least 2^15
+    elements (the JAX package's `wants_dispatch` threshold), so that every
+    admitted plan has K3's full 1024-word tile."""
+    return (tw_level <= 5 and data_level >= max(5, tw_level) and n >= MIN_ELEMS
+            and n & (n - 1) == 0)
 
 
 def _make_plan(domain: NTTDomain, dl: int, shape: tuple, coset: int,

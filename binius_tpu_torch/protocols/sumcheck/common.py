@@ -29,6 +29,9 @@ class SumcheckClaim:
     n_multilinears: int
     composite_sums: tuple  # tuple[CompositeSumClaim]
 
+    def max_individual_degree(self) -> int:
+        return max((c.composition.degree() for c in self.composite_sums), default=0)
+
 
 def add_coeffs(a: list[int], b: list[int]) -> list[int]:
     n = max(len(a), len(b))
@@ -59,3 +62,4 @@ def eval_coeffs(coeffs: list[int], x: int) -> int:
     for c in reversed(coeffs):
         acc = scalar.mul(LEVEL, acc, x) ^ c
     return acc
+

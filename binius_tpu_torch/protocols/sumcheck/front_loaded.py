@@ -1,16 +1,15 @@
 """Front-loaded batched sumcheck (shared *early* challenges).
 
-The port's copy of the parts of `binius_tpu/protocols/sumcheck/front_loaded.py`
-that the PIOP reaches; it mirrors `crates/core/src/protocols/sumcheck/
-front_loaded.rs` and `prove/front_loaded.rs`: claims sorted ascending by
-n_vars all start at round 0; a claim with k variables finishes after round
-k, at which point its multilinear evaluations enter the transcript and its
-batched composite evaluation is subtracted from the running sum. One
-batching coefficient per claim; composite claims inside a claim are mixed
-by powers of it (`batch_weighted_value`, `sumcheck/common.rs:287`). Exposes
-a round-by-round interface so the PIOP can interleave it with FRI folding.
-The zerocheck's prebatched coefficients and eq-indicator evaluations are
-not ported yet.
+The port's copy of `binius_tpu/protocols/sumcheck/front_loaded.py`: claims
+sorted ascending by n_vars all start at round 0; a claim with k variables
+finishes after round k, at which point its multilinear evaluations enter
+the transcript and its batched composite evaluation is subtracted from the
+running sum. One batching coefficient per claim; composite claims inside a
+claim are mixed by powers of it (`batch_weighted_value`). A round-by-round
+interface lets the PIOP interleave it with FRI folding. The univariate-skip
+zerocheck reuses its own batching coefficients (`coeffs=`, with the
+verifier's `presummed=` sum), and an eq-indicator claim's first evaluation
+is recomputed by the verifier instead of being sent.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from __future__ import annotations
 from ...fields import scalar
 from . import common
 from .common import LEVEL
+from .verify import _eq_scalar
 
 
 def batch_weighted_value(coeff: int, values: list[int]) -> int:
@@ -28,39 +28,67 @@ def batch_weighted_value(coeff: int, values: list[int]) -> int:
     return scalar.mul(LEVEL, coeff, acc)
 
 
-def _degree(claims) -> int:
-    return max((max(cs.composition.degree() for cs in c.composite_sums)
-                if c.composite_sums else 0 for c in claims), default=0)
-
-
 class FrontLoadedBatchProver:
-    """Provers must be sorted ascending by n_vars, folding high to low."""
+    """Provers must be sorted ascending by n_vars, order_high folding.
 
-    def __init__(self, provers: list, transcript):
+    `coeffs`: pass pre-sampled batching coefficients (the univariate-skip
+    zerocheck reuses its univariate-round coefficients,
+    `front_loaded.rs` `BatchProver::new_prebatched`); None samples fresh ones.
+    Provers with `eq_ind_challenges` set skip their position-0 (eq indicator)
+    eval in the transcript — the verifier reconstructs it.
+
+    A prover may carry several claims (`multi_claim = True`): it consumes
+    one batching coefficient per claim, its `compute_round_polys`/`finish`
+    return one entry per claim, and the transcript stays byte-identical to
+    separate per-claim provers.
+    """
+
+    def __init__(self, provers: list, transcript, coeffs: list | None = None):
         assert all(provers[i].n_vars <= provers[i + 1].n_vars for i in range(len(provers) - 1))
         self.provers = list(provers)   # queue front = fewest vars
-        self.coeffs = transcript.sample_scalars(LEVEL, len(provers))
+        n_claims = sum(getattr(p, "n_claims", 1) for p in provers)
+        if coeffs is None:
+            coeffs = transcript.sample_scalars(LEVEL, n_claims)
+        assert len(coeffs) == n_claims
+        # per-prover claim-coefficient lists, claim order
+        self.coeffs: list[list] = []
+        pos = 0
+        for p in provers:
+            n = getattr(p, "n_claims", 1)
+            self.coeffs.append(list(coeffs[pos:pos + n]))
+            pos += n
         self.round = 0
-        self.multilinear_evals: list = []  # claim-order final evals
+        self.multilinear_evals: list = []  # claim-order final evals (incl. eq)
+        self.finish_rounds: list = []      # round at which each claim finished
 
     def _finish_ready(self, writer) -> None:
         while self.provers and self.provers[0].n_vars == self.round:
             p = self.provers.pop(0)
             self.coeffs.pop(0)
-            evals = p.finish()
-            writer.write_scalars(LEVEL, evals)
-            self.multilinear_evals.append(evals)
+            finished = p.finish()
+            per_claim = finished if getattr(p, "multi_claim", False) else [finished]
+            for evals in per_claim:
+                send = evals[1:] if getattr(p, "eq_ind_challenges", None) is not None else evals
+                writer.write_scalars(LEVEL, send)
+                self.multilinear_evals.append(evals)
+                self.finish_rounds.append(self.round)
 
     def send_round_proof(self, transcript) -> None:
         w = transcript.message()
         self._finish_ready(w)
         combined: list[int] = []
-        for p, c in zip(self.provers, self.coeffs):
-            wgt = c
-            for coeffs_j in p.compute_round_polys():
-                combined = common.add_coeffs(combined, common.scale_coeffs(coeffs_j, wgt))
-                wgt = scalar.mul(LEVEL, wgt, c)
-        deg = _degree([p.claim for p in self.provers])
+        for p, cs in zip(self.provers, self.coeffs):
+            polys = p.compute_round_polys()
+            per_claim = polys if getattr(p, "multi_claim", False) else [polys]
+            assert len(per_claim) == len(cs)
+            for claim_polys, c in zip(per_claim, cs):
+                weights = [c]
+                for _ in range(len(claim_polys) - 1):
+                    weights.append(scalar.mul(LEVEL, weights[-1], c))
+                for coeffs_j, wgt in zip(claim_polys, weights):
+                    combined = common.add_coeffs(combined, common.scale_coeffs(coeffs_j, wgt))
+        deg = max((max(cs.composition.degree() for cs in p.claim.composite_sums)
+                   if p.claim.composite_sums else 0 for p in self.provers), default=0)
         combined = combined + [0] * (deg + 1 - len(combined))
         w.write_scalars(LEVEL, common.truncate(combined))
 
@@ -76,25 +104,43 @@ class FrontLoadedBatchProver:
 
 
 class FrontLoadedBatchVerifier:
-    """Round-by-round verifier; claims ascending by n_vars."""
+    """Round-by-round verifier; claims ascending by n_vars.
 
-    def __init__(self, claims: list, transcript):
+    `coeffs`/`presummed`: prebatched mode — coefficients and the initial
+    batched sum come from an outer reduction (univariate-skip zerocheck).
+    `eq_ind_points[i]`: claim i's position-0 multilinear is the eq indicator
+    of that point; its eval is reconstructed from the challenges instead of
+    being read from the transcript.
+    """
+
+    def __init__(self, claims: list, transcript, coeffs: list | None = None,
+                 presummed: int | None = None, eq_ind_points: list | None = None):
         assert all(claims[i].n_vars <= claims[i + 1].n_vars for i in range(len(claims) - 1))
         self.claims = list(claims)
-        self.coeffs = transcript.sample_scalars(LEVEL, len(claims))
-        self.sum = 0
-        for claim, c in zip(self.claims, self.coeffs):
-            self.sum ^= batch_weighted_value(c, [cs.sum for cs in claim.composite_sums])
+        if coeffs is None:
+            coeffs = transcript.sample_scalars(LEVEL, len(claims))
+        assert len(coeffs) == len(claims)
+        self.coeffs = list(coeffs)
+        if presummed is None:
+            s = 0
+            for claim, c in zip(self.claims, self.coeffs):
+                s ^= batch_weighted_value(c, [cs.sum for cs in claim.composite_sums])
+            presummed = s
+        self.sum = presummed
+        self.eq_ind_points = list(eq_ind_points) if eq_ind_points is not None \
+            else [None] * len(claims)
+        assert len(self.eq_ind_points) == len(claims)
         self.round = 0
+        self.challenges: list = []
         self.multilinear_evals: list = []
+        self.finish_rounds: list = []
         self._reader = None
 
     def _round_reader(self, transcript):
         """EXACTLY one message reader per round (+ one post-loop), created
-        unconditionally — the reference obtains `transcript.message()` before
-        `try_finish_claim` every round (`front_loaded.rs:287-301`), and
-        obtaining it transitions the challenger even when nothing is read.
-        The prover's `send_round_proof`/`finish` writers mirror this."""
+        unconditionally: obtaining a reader transitions the challenger even
+        when nothing is read. The prover's `send_round_proof`/`finish`
+        writers mirror this."""
         if self._reader is None:
             self._reader = transcript.message()
         return self._reader
@@ -104,14 +150,25 @@ class FrontLoadedBatchVerifier:
         while self.claims and self.claims[0].n_vars == self.round:
             claim = self.claims.pop(0)
             coeff = self.coeffs.pop(0)
-            evals = reader.read_scalars(LEVEL, claim.n_multilinears)
+            eq_pt = self.eq_ind_points.pop(0)
+            n_read = claim.n_multilinears - (1 if eq_pt is not None else 0)
+            evals = reader.read_scalars(LEVEL, n_read)
+            if eq_pt is not None:
+                # high-to-low folding: var j of the claim was bound at round
+                # (n_vars - 1 - j), i.e. the point is the reversed challenge
+                # prefix of length n_vars
+                pt = list(reversed(self.challenges[:claim.n_vars]))
+                evals = [_eq_scalar(list(eq_pt), pt), *evals]
             self.multilinear_evals.append(evals)
+            self.finish_rounds.append(self.round)
             vals = [cs.composition.evaluate_scalar(LEVEL, evals)
                     for cs in claim.composite_sums]
             self.sum ^= batch_weighted_value(coeff, vals)
 
     def receive_round_proof(self, transcript) -> None:
-        proof_coeffs = self._round_reader(transcript).read_scalars(LEVEL, _degree(self.claims))
+        deg = max((max(cs.composition.degree() for cs in c.composite_sums)
+                   if c.composite_sums else 0 for c in self.claims), default=0)
+        proof_coeffs = self._round_reader(transcript).read_scalars(LEVEL, deg)
         self._full = common.recover_full(proof_coeffs, self.sum)
 
     def finish_round(self, challenge: int) -> None:

@@ -1,35 +1,157 @@
-"""The bivariate-product sumcheck prover of the PIOP.
+"""Sumcheck provers.
 
-The port of `BivariateSumcheckProver` (`binius_tpu/protocols/sumcheck/
-prove.py:649`) and its round helpers: claims whose composites are all
-products of two multilinears, the shape of the PIOP's claims (the
-reference's v3 `BivariateSumcheckProver`). The multilinears sit in one
-(m, 2^n, 4) B128 stack on the device; a round evaluates every product at
-X = 0, 1, 2 over the halves of the folding variable and XOR-reduces, and
-the host interpolates the degree-2 round polynomials. The JAX package's
-power-of-4 shape buckets and streamed chunks exist for XLA's compile cache
-and program size and are not carried over.
+The port of `binius_tpu/protocols/sumcheck/prove.py`: `RegularSumcheckProver`
+(any compositions, either folding order, the eq-indicator mode of the
+zerocheck and the evalcheck), `BivariateSumcheckProver` (products of two
+multilinears: the PIOP and the zerocheck's univariatizing reduction),
+`BatchedBivariateSumcheckProver` (k independent product claims as one
+stack: the evalcheck's shift claims) and the rear-loaded `batch_prove`.
+
+A prover holds its multilinears as one (m, 2^n, 4) B128 stack on its
+device. A round takes the two halves of the folding variable as views
+(the high half first when `order_high`, else the even and odd rows),
+extrapolates them to the domain's other points, lays the points side by
+side along the element axis and evaluates each composition once over all
+of them, with no index gather of the stack in the round; the XOR-reduced
+values cross to the host, which interpolates the round polynomials. A
+product prover reorders its rows once, at construction, so that the
+composition operands are two contiguous blocks. The JAX package's
+power-of-4 shape buckets, streamed chunks, batch gates and mesh placement
+exist for XLA's compile cache, program size and the TPU mesh, and are not
+carried over.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ...fields import tower
-from ...math import fold
+from ...math import mle
 from ...math.univariate import EvaluationDomain
+from . import common
 from .common import LEVEL, SumcheckClaim
 
 
-class BivariateSumcheckProver:
-    """Prover for a claim whose composites are products of two of its
-    multilinears; it folds the highest variable first."""
+def _halves(stack: torch.Tensor, n_remaining: int, order_high: bool):
+    """(evals at X = 0, evals at X = 1) of the folding variable, as views
+    of the stack's first 2^n_remaining rows of each multilinear."""
+    n = 1 << n_remaining
+    if order_high:
+        return stack[:, :n // 2], stack[:, n // 2:n]
+    d = stack[:, :n].reshape(stack.shape[0], n // 2, 2, stack.shape[-1])
+    return d[:, :, 0], d[:, :, 1]
 
-    def __init__(self, claim: SumcheckClaim, multilinears: list):
+
+def _at_points(e0: torch.Tensor, e1: torch.Tensor, points) -> torch.Tensor:
+    """The multilinears at every domain point, the points side by side on
+    the element axis: (m, n_points * half, 4)."""
+    diff = None
+    out = []
+    for x in points:
+        if x == 0:
+            out.append(e0)
+        elif x == 1:
+            out.append(e1)
+        else:
+            if diff is None:
+                diff = e0 ^ e1
+            out.append(e0 ^ tower.mul(LEVEL, diff, tower.full(LEVEL, (), x, e0.device)))
+    return torch.cat(out, dim=1)
+
+
+def _fold(stack: torch.Tensor, n_remaining: int, order_high: bool, challenge: int) -> torch.Tensor:
+    e0, e1 = _halves(stack, n_remaining, order_high)
+    r = tower.full(LEVEL, (), challenge, stack.device)
+    return e0 ^ tower.mul(LEVEL, e0 ^ e1, r)
+
+
+def _rows(vals: torch.Tensor, n_points: int) -> list:
+    """(k, n_points * half, 4) composite values -> per k, the n_points
+    XOR-reduced values as ints (one host copy)."""
+    k = vals.shape[0]
+    red = tower.xor_reduce(vals.reshape(k, n_points, -1, 4), 2)
+    flat = tower.to_ints(LEVEL, red)
+    return [flat[i * n_points:(i + 1) * n_points] for i in range(k)]
+
+
+def _stack(multilinears, n_vars: int) -> torch.Tensor:
+    """[(level, data)] of 2^n_vars elements (bit-packed B1 allowed) -> one
+    (m, 2^n_vars, 4) B128 stack."""
+    cols = []
+    for lvl, d in multilinears:
+        lvl, d = tower.resolve_p1(lvl, d)
+        d = d.reshape(tower.elem_shape(lvl, (1 << n_vars,)))
+        cols.append(tower.embed(lvl, LEVEL, d) if lvl < LEVEL else d)
+    return torch.stack(cols)
+
+
+class RegularSumcheckProver:
+    """Proves a `SumcheckClaim` over its multilinears [(level, tensor)].
+
+    `eq_ind_challenges`: multilinear 0 is the eq-indicator expansion of
+    that point; its final evaluation is recomputed by the verifier instead
+    of being sent (the zerocheck and evalcheck convention)."""
+
+    def __init__(self, claim: SumcheckClaim, multilinears, order_high: bool,
+                 eq_ind_challenges: tuple | None = None):
         assert len(multilinears) == claim.n_multilinears
         self.claim = claim
+        self.order_high = order_high
+        self.eq_ind_challenges = eq_ind_challenges
         self.n_remaining = claim.n_vars
-        self.stack = torch.stack([tower.embed(lvl, LEVEL, d) for lvl, d in multilinears])
+        self.stack = _stack(multilinears, claim.n_vars)
+        self.domain = EvaluationDomain.from_subspace(3, claim.max_individual_degree() + 1)
+
+    @property
+    def n_vars(self) -> int:
+        return self.claim.n_vars
+
+    def compute_round_polys(self) -> list[list[int]]:
+        """Round polynomial coefficients, one list per composite claim."""
+        if not self.claim.composite_sums:
+            return []
+        pts = self.domain.points
+        ev = _at_points(*_halves(self.stack, self.n_remaining, self.order_high), pts)
+        rows = [ev[i] for i in range(ev.shape[0])]
+        vals = torch.stack([cs.composition.evaluate_batch(LEVEL, rows)
+                            for cs in self.claim.composite_sums])
+        return [self.domain.interpolate(LEVEL, v) for v in _rows(vals, len(pts))]
+
+    def fold(self, challenge: int) -> None:
+        self.stack = _fold(self.stack, self.n_remaining, self.order_high, challenge)
+        self.n_remaining -= 1
+
+    def finish(self) -> list[int]:
+        """Multilinear evaluations at the bound point."""
+        assert self.n_remaining == 0
+        return tower.to_ints(LEVEL, self.stack[:, 0])
+
+
+class BivariateSumcheckProver:
+    """Prover for a claim whose composites are all products of two of its
+    multilinears. `prestacked`: an (m, 2^n_vars, 4) B128 stack built by the
+    caller, in place of `multilinears`.
+
+    The rows are reordered once, at construction, into [first operands of
+    every composite, second operands, multilinears in no composite], a
+    multilinear repeated where several composites read it, so that a
+    round's products are one product of two contiguous blocks."""
+
+    eq_ind_challenges = None
+
+    def __init__(self, claim: SumcheckClaim, multilinears=None, order_high: bool = True,
+                 prestacked=None):
+        self.claim = claim
+        self.order_high = order_high
+        self.n_remaining = claim.n_vars
+        if prestacked is not None:
+            assert prestacked.shape[0] == claim.n_multilinears
+            stack = prestacked
+        else:
+            assert len(multilinears) == claim.n_multilinears
+            stack = _stack(multilinears, claim.n_vars)
         idx_a, idx_b = [], []
         for cs in claim.composite_sums:
             expr = cs.composition.expr
@@ -37,40 +159,131 @@ class BivariateSumcheckProver:
                 "BivariateSumcheckProver requires pure product compositions"
             idx_a.append(expr.args[0].value)
             idx_b.append(expr.args[1].value)
-        dev = self.stack.device
-        self.idx_a = torch.tensor(idx_a, dtype=torch.long, device=dev)
-        self.idx_b = torch.tensor(idx_b, dtype=torch.long, device=dev)
+        self._init_rows(stack, idx_a, idx_b)
+
+    def _init_rows(self, stack: torch.Tensor, idx_a: list, idx_b: list) -> None:
+        m = stack.shape[0]
+        order = idx_a + idx_b
+        order += [i for i in range(m) if i not in set(order)]
+        if order != list(range(m)):
+            stack = stack[torch.tensor(order, dtype=torch.long, device=stack.device)]
+        self.stack = stack
+        self.n_comps = len(idx_a)
+        self._row_of = [order.index(i) for i in range(m)]
         self.domain = EvaluationDomain.from_subspace(3, 3)
 
     @property
     def n_vars(self) -> int:
         return self.claim.n_vars
 
-    def _halves(self):
-        """(evals at X = 0, evals at X = 1) of the folding variable."""
-        n = 1 << self.n_remaining
-        return self.stack[:, :n // 2], self.stack[:, n // 2:n]
+    def _round_values(self) -> list:
+        """Per composite, its values at X = 0, 1, 2."""
+        k = self.n_comps
+        e0, e1 = _halves(self.stack, self.n_remaining, self.order_high)
+        ev = _at_points(e0[:2 * k], e1[:2 * k], self.domain.points)
+        return _rows(tower.mul(LEVEL, ev[:k], ev[k:]), 3)
 
     def compute_round_polys(self) -> list[list[int]]:
-        if not len(self.idx_a):
+        if not self.n_comps:
             return []
-        e0, e1 = self._halves()
-        two = tower.full(LEVEL, (), 2, device=self.stack.device)
-        rows = []
-        for e in (e0, e1, fold.extrapolate_line(LEVEL, e0, e1, two)):
-            prod = tower.mul(LEVEL, e[self.idx_a], e[self.idx_b])
-            rows.append(tower.xor_reduce(prod, 1))          # (n_comps, 4)
-        flat = tower.to_ints(LEVEL, torch.stack(rows))      # (3, n_comps) row-major
-        n_c = len(self.idx_a)
-        return [self.domain.interpolate(LEVEL, [flat[p * n_c + ci] for p in range(3)])
-                for ci in range(n_c)]
+        return [self.domain.interpolate(LEVEL, v) for v in self._round_values()]
 
     def fold(self, challenge: int) -> None:
-        ch = tower.from_ints(LEVEL, [challenge], device=self.stack.device)[0]
-        e0, e1 = self._halves()
-        self.stack = fold.extrapolate_line(LEVEL, e0, e1, ch)
+        self.stack = _fold(self.stack, self.n_remaining, self.order_high, challenge)
         self.n_remaining -= 1
 
     def finish(self) -> list[int]:
         assert self.n_remaining == 0
-        return tower.to_ints(LEVEL, self.stack[:, 0])
+        vals = tower.to_ints(LEVEL, self.stack[:, 0])
+        return [vals[r] for r in self._row_of]
+
+
+class BatchedBivariateSumcheckProver(BivariateSumcheckProver):
+    """k independent bivariate-product claims of equal n_vars as one stack:
+    `pair_stack` (2k, 2^n_vars, 4) B128, rows [ml0 of claim 0, ml1 of claim
+    0, ml0 of claim 1, ...]. `batch_prove` samples one batching coefficient
+    per claim; round polynomials and final evaluations come per claim, so
+    the transcript equals that of k separate provers."""
+
+    multi_claim = True
+
+    def __init__(self, claims: list, pair_stack, order_high: bool = False):
+        assert claims and pair_stack.shape[0] == 2 * len(claims)
+        nv = claims[0].n_vars
+        assert all(c.n_vars == nv for c in claims)
+        self.claims = claims
+        self.claim = claims[0]
+        self.n_claims = len(claims)
+        self.order_high = order_high
+        self.n_remaining = nv
+        k = self.n_claims
+        self._init_rows(pair_stack, list(range(0, 2 * k, 2)), list(range(1, 2 * k, 2)))
+
+    def finish(self) -> list[list[int]]:
+        """Per claim, [ml0 eval, ml1 eval]."""
+        vals = super().finish()
+        return [vals[2 * i:2 * i + 2] for i in range(self.n_claims)]
+
+
+@dataclasses.dataclass
+class BatchSumcheckOutput:
+    challenges: list         # sampled challenges, in round order
+    multilinear_evals: list  # per claim: its evals (eq-indicator eval included)
+
+
+def batch_prove(provers: list, transcript) -> BatchSumcheckOutput:
+    """Rear-loaded batched sumcheck; provers sorted descending by n_vars,
+    one folding order. A prover of several claims (`multi_claim`) takes one
+    batching coefficient per claim."""
+    assert all(provers[i].n_vars >= provers[i + 1].n_vars for i in range(len(provers) - 1))
+    n_rounds = provers[0].n_vars if provers else 0
+    batch_coeffs: list[int] = []
+    coeff_start: list[int] = []
+    challenges: list[int] = []
+    next_idx = 0
+
+    def activate(idx: int) -> None:
+        coeff_start.append(len(batch_coeffs))
+        for _ in range(getattr(provers[idx], "n_claims", 1)):
+            batch_coeffs.append(transcript.sample_scalar(LEVEL))
+
+    for rnd in range(n_rounds):
+        while next_idx < len(provers) and provers[next_idx].n_vars == n_rounds - rnd:
+            activate(next_idx)
+            next_idx += 1
+        combined: list[int] = []
+        for pi, p in enumerate(provers[:next_idx]):
+            polys = p.compute_round_polys()
+            if getattr(p, "multi_claim", False):
+                phis = batch_coeffs[coeff_start[pi]:coeff_start[pi] + p.n_claims]
+                assert len(polys) == p.n_claims
+            else:
+                phis = [batch_coeffs[coeff_start[pi]]] * len(polys)
+            for coeffs, phi in zip(polys, phis):
+                combined = common.add_coeffs(combined, common.scale_coeffs(coeffs, phi))
+        transcript.message().write_scalars(LEVEL, common.truncate(combined))
+        challenge = transcript.sample_scalar(LEVEL)
+        challenges.append(challenge)
+        for p in provers[:next_idx]:
+            p.fold(challenge)
+    while next_idx < len(provers) and provers[next_idx].n_vars == 0:
+        activate(next_idx)
+        next_idx += 1
+    all_evals = []
+    for p in provers:
+        if getattr(p, "multi_claim", False):
+            for evals in p.finish():
+                transcript.message().write_scalars(LEVEL, evals)
+                all_evals.append(evals)
+        else:
+            evals = p.finish()
+            send = evals[1:] if p.eq_ind_challenges is not None else evals
+            transcript.message().write_scalars(LEVEL, send)
+            all_evals.append(evals)
+    return BatchSumcheckOutput(challenges, all_evals)
+
+
+def eq_ind_expansion_multilinear(point: list[int], device=None):
+    """(level, data) of the eq-indicator expansion of `point` (variable 0 =
+    point[0]) on `device`."""
+    return LEVEL, mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, point, device))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive binius_tpu_torch's commit and its opening on one NVIDIA H100 and
-check them.
+"""Drive binius_tpu_torch's u32_add proof (and its commit and opening on
+their own) on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -30,18 +30,40 @@ check them.
    codeword and every tree layer against the same commit composed from the
    plain versions; at 2^16 rows the root against a golden root computed by
    the JAX package; the warm commit time and its split.
-5. The opening (the main path): one evaluation claim per committed column
+5. The opening: one evaluation claim per committed column
    at a point drawn after the witness, proven by commit, `ring_switch.prove`
    and `piop.prove`, with every launch counter set to 0 just before and read
    just after, and no Grøstl compression on the host (a counter around
    `groestl.compress_pairs_t`); the port's verifiers accept the proof and
    reject it with one byte flipped; the warm time (median of 3) and its
    split.
-6. Bytes: at 2^16 rows the opening's sha256 against a golden digest
+   (The commit and the opening are the earlier slices' main paths, each
+   driven on its own with its own counts.)
+6. The NTT's small shapes (fault C1): forward and inverse transforms of 16,
+   32, 64 and 128 B128 elements (B32 twiddles, a coset of a larger domain)
+   and a B8 transform of the zerocheck's shape (k = 7 stages over 5 rows)
+   take the packed stage loop on the card, no K2-K4 launch, and equal it
+   on the CPU; the smallest batch the bitsliced gate admits (2^15
+   elements) takes K2/K3/K4 and equals the stage loop on the card.
+7. The proof (the main path): the u32_add constraint system of
+   2^log_rows rows, its inputs drawn from --seed
+   (`m3.gadgets.arith.u32_add_rows`), proven with
+   `constraint_system.prove.prove` on the card: the first run's time, then
+   one run with every launch counter set to 0 just before and read just
+   after (each of K1-K6 launched, no host Grøstl compression), its length,
+   sha256 and peak device memory; the port's `verify` accepts it and
+   rejects it with one byte flipped; the warm prove time (median of 3) with
+   its phase split (commit, exp, zerocheck, evalcheck, ring switch, PIOP)
+   and the verify time, the bytes equal across the runs.
+8. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
-   plain versions (on the CPU) against the kernel path, byte for byte.
-7. One JSON line for the kernels, then, as the last line,
-   {"ok": true, "device": {...}}.
+   plain versions (on the CPU) against the kernel path, byte for byte; the
+   golden 8-row u32_add proof (`tests/test_golden_transcript.py`'s
+   instance) on the card against its pinned length and sha256; the 2^16-row
+   proof against the JAX package's digest, and the same proof through the
+   plain versions on the CPU against the kernel path's bytes.
+9. One JSON line for the kernels (launches: the proof's), then, as the
+   last line, {"ok": true, "device": {...}}.
 
 Every failure raises: no phase is caught. Without a CUDA device the script
 exits non-zero before printing any result.
@@ -53,6 +75,7 @@ import argparse
 import hashlib
 import json
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -71,6 +94,14 @@ GOLDEN_ROOT_16 = "5ba7dfef9aaac4e68954742aec76cae848d679dbe787f5a4957283dfacf088
 # (jax 0.9.0) by
 #   python scripts/port_golden_open.py --log-rows 16 --seed 0
 GOLDEN_OPEN_16 = "21afac7159130124a328928ff19e3590bcc3e50fc0cc6119002f22b17a6a0591"
+# The JAX package's u32_add proof of u32_add_rows(16, seed=0) (its M3 front
+# end, `constraint_system.prove.prove`, log_inv_rate 1), computed on the CPU
+# with binius_tpu (jax 0.9.0) by
+#   python scripts/port_golden_proof.py --log-rows 16 --seed 0
+GOLDEN_PROOF_16 = (202416, "645a741da769b72893f0a66f657e3f7c11e5f91e7ce4200e6f993ab5eab091cc")
+# The golden 8-row instance of tests/test_golden_transcript.py (rows drawn
+# by random.Random(42)), pinned in tests/fixtures/proof_self_golden.json.
+GOLDEN_PROOF_8 = (7328, "ff771c0972ec4044dac2aeb7f02b0f602d872968a4aaf9d5b3770608a7c2e079")
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
 # 700 W). Logic: the CUDA C++ Programming Guide's throughput of 32-bit
@@ -259,6 +290,30 @@ def verify_opening(inst: dict, proof: bytes) -> None:
     red = ring_switch.verify(inst["claims"], vt, inst["device"])
     piop.verify(inst["params"], inst["meta"], com, red.transparent_mles, red.sumcheck_claims, vt)
     vt.finalize()
+
+
+def proof_system(log_rows: int, seed: int, device):
+    """The u32_add system of 2^log_rows rows drawn from `seed`, its witness
+    on `device`."""
+    from binius_tpu_torch.m3.gadgets import arith
+    return arith.u32_add_system(log_rows, *arith.u32_add_rows(log_rows, seed), device)
+
+
+def golden_system(device):
+    """The golden 8-row instance, built as tests/test_golden_transcript.py
+    builds it."""
+    from binius_tpu_torch.m3.gadgets import arith
+    rng = random.Random(42)
+    xs = [rng.getrandbits(32) for _ in range(8)]
+    ys = [rng.getrandbits(32) for _ in range(8)]
+    return arith.u32_add_system(3, xs, ys, device)
+
+
+def check_digest(what: str, proof: bytes, want: tuple) -> None:
+    got = (len(proof), hashlib.sha256(proof).hexdigest())
+    if got != want:
+        raise AssertionError(f"{what}: {got[0]} bytes, sha256 {got[1]} != {want}")
+    log(f"{what}: {got[0]} bytes, sha256 {got[1]} (= golden)")
 
 
 class Phases:
@@ -701,7 +756,7 @@ def main() -> int:
         args.log_rows, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
     phases.done("commit")
 
-    # 5. the opening, the main path: commit, ring switch, PIOP; counted, with
+    # 5. the opening: commit, ring switch, PIOP; counted, with
     # the host's Grøstl compressions and the trees' leaf counts recorded
     host_compressions = [0]
     compress_pairs_t, tree_levels = groestl.compress_pairs_t, groestl_cuda.tree_levels
@@ -744,8 +799,6 @@ def main() -> int:
         raise AssertionError(f"K2 launched {counts['k2_transpose32']} times, not 2")
     if counts["k4_ntt_cross"] != len(runs):  # the commit's NTT only
         raise AssertionError(f"K4 launched {counts['k4_ntt_cross']} times, not {len(runs)}")
-    for r in rows:
-        r["launches"] = counts[r["name"]]
     verify_opening(inst, proof)
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
@@ -795,7 +848,115 @@ def main() -> int:
             args.log_rows, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
     phases.done("opening")
 
-    # 6. bytes: the JAX package's digest at 2^16 rows, and the same opening
+    # 6. the NTT's small shapes take the packed stage loop on the card (C1)
+    from binius_tpu_torch.ntt import additive_ntt
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(args.seed)
+
+    def stage_loop_check(tl, dl, x, log_y, label):
+        ntt = additive_ntt.AdditiveNTT(additive_ntt.NTTDomain.create(tl, log_y + 1))
+        for inverse in (False, True):
+            fn = ntt.inverse if inverse else ntt.forward
+            cuda_lib.reset_launches()
+            got = fn(x.to(dev), dl, (0, log_y, 0), 1, 1, device=dev)
+            torch.cuda.synchronize()
+            if any(cuda_lib.launches[k] for k in ("k2_transpose32", "k3_ntt_local",
+                                                   "k4_ntt_cross")):
+                raise AssertionError(f"C1 {label}: the bitsliced path ran ({cuda_lib.launches})")
+            want = fn(x, dl, (0, log_y, 0), 1, 1, device=cpu)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"C1 {label} {'inverse' if inverse else 'forward'}: "
+                                     f"card != CPU stage loop")
+        log(f"C1: {label}, forward and inverse on coset 1: stage loop on the card = on the CPU")
+
+    for n in (16, 32, 64, 128):
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 4), dtype=torch.int32, generator=g)
+        stage_loop_check(5, 7, x, n.bit_length() - 1, f"{n} B128 elements, B32 twiddles")
+    x = torch.randint(0, 256, (5, 64 << 7), dtype=torch.int32, generator=g)
+    stage_loop_check(3, 3, x, 7, "B8 data on B8 twiddles, k = 7, 5 rows x 64 suffixes")
+    # the smallest batch the bitsliced gate admits: K3's whole tile
+    n_min = bn.MIN_ELEMS
+    if bn.supported(5, 7, n_min >> 1) or not bn.supported(5, 7, n_min):
+        raise AssertionError("the bitsliced gate is not at 2^15 elements")
+    ntt = additive_ntt.AdditiveNTT(additive_ntt.NTTDomain.create(5, 13))
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_min, 4), dtype=torch.int32, generator=g).to(dev)
+    cuda_lib.reset_launches()
+    got = ntt.forward(x, 7, (2, 13, 0), skip_rounds=1, device=dev)
+    torch.cuda.synchronize()
+    if not all(cuda_lib.launches[k] for k in ("k2_transpose32", "k3_ntt_local")):
+        raise AssertionError(f"C1: 2^15 elements did not take the bitsliced path "
+                             f"({cuda_lib.launches})")
+    if not torch.equal(got, ntt._stage_loop(x, 7, (2, 13, 0), 0, 0, 1, False)):
+        raise AssertionError("C1: bitsliced transform at 2^15 elements != stage loop")
+    log(f"C1: 2^15 B128 elements take the bitsliced path (launches {dict(cuda_lib.launches)}) "
+        f"= the stage loop on the card")
+    phases.done("C1 small transforms")
+
+    # 7. the proof, the main path: the u32_add constraint system through
+    # `constraint_system.prove` on the card
+    from binius_tpu_torch.constraint_system import prove as csp
+    core, witness = proof_system(args.log_rows, args.seed, dev)
+    torch.cuda.synchronize()
+    n_vars = core.constraint_sets[0].n_vars
+    log(f"proof: u32_add, 2^{args.log_rows} rows (2^{n_vars} B1 values per column), "
+        f"{len(core.oracles.committed_ids())} committed columns, zerocheck skip "
+        f"{csp._zerocheck_skip(core)}")
+    t0 = time.perf_counter()
+    csp.prove(core, witness)
+    torch.cuda.synchronize()
+    log("proof, first run: %.1f ms (%s)" % ((time.perf_counter() - t0) * 1e3, ", ".join(
+        f"{k} {v * 1e3:.1f}" for k, v in csp.last_phase_times.items())))
+    host_compressions[0] = 0
+    groestl.compress_pairs_t = counted_compress
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    proof = csp.prove(core, witness)
+    torch.cuda.synchronize()
+    counts = dict(cuda_lib.launches)
+    groestl.compress_pairs_t = compress_pairs_t
+    log(f"launches on the proof: {counts}; host Grøstl compressions {host_compressions[0]}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    if host_compressions[0]:
+        raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    log(f"proof: {len(proof)} bytes, sha256 {hashlib.sha256(proof).hexdigest()}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    t0 = time.perf_counter()
+    csp.verify(core, proof)
+    log(f"proof verifies ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    bad = bytearray(proof)
+    bad[len(bad) // 3] ^= 1
+    try:
+        csp.verify(core, bytes(bad))
+    except (ValueError, EOFError) as e:
+        log(f"proof with byte {len(bad) // 3} flipped: rejected ({e})")
+    else:
+        raise AssertionError("a proof with a flipped byte was accepted")
+    names = ("total", "commit", "exp", "zerocheck", "evalcheck", "ring_switch", "piop", "verify")
+    splits = {k: [] for k in names}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = csp.prove(core, witness)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if again != proof:
+            raise AssertionError("proof: bytes differ between runs")
+        for k in names[1:-1]:
+            splits[k].append(csp.last_phase_times[k] * 1e3)
+        splits["total"].append((t1 - t0) * 1e3)
+        csp.verify(core, again)
+        splits["verify"].append((time.perf_counter() - t1) * 1e3)
+    split = {k: statistics.median(v) for k, v in splits.items()}
+    log("proof 2^%d rows, warm, median of 3 (ms; verify apart): %s" % (
+        args.log_rows, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+    del core, witness
+    phases.done("proof")
+
+    # 8. bytes: the JAX package's digest at 2^16 rows, and the same opening
     # composed from the plain versions on the CPU (at the golden's depth it
     # runs two FRI oracles, as the main path runs three, in a few seconds)
     g_proof = open_commitment(g_inst)
@@ -810,8 +971,25 @@ def main() -> int:
     log(f"opening 2^{GOLDEN_LOG_ROWS} rows through the plain versions on the CPU: "
         f"the kernel path's bytes")
     phases.done("golden and plain openings")
+    # the golden 8-row proof, and the proof at 2^16 rows: the JAX package's
+    # digest, the kernel path and the plain versions on the CPU
+    core8, wit8 = golden_system(dev)
+    p8 = csp.prove(core8, wit8)
+    check_digest("golden 8-row proof on the card", p8, GOLDEN_PROOF_8)
+    csp.verify(core8, p8)
+    core16, wit16 = proof_system(GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
+    p16 = csp.prove(core16, wit16)
+    check_digest(f"proof 2^{GOLDEN_LOG_ROWS} rows, seed {GOLDEN_SEED} on the card", p16,
+                 GOLDEN_PROOF_16)
+    t0 = time.perf_counter()
+    p16_cpu = csp.prove(*proof_system(GOLDEN_LOG_ROWS, GOLDEN_SEED, cpu), device=cpu)
+    if p16_cpu != p16:
+        raise AssertionError("plain-path proof differs from the kernel path")
+    log(f"proof 2^{GOLDEN_LOG_ROWS} rows through the plain versions on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")
+    phases.done("golden and plain proofs")
 
-    # 7. results
+    # 9. results
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

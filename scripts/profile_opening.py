@@ -1,6 +1,8 @@
-"""Profile one warm opening of the u32_add commitment on the card.
+"""Profile one warm opening of the u32_add commitment, or one warm proof of
+the u32_add constraint system, on the card.
 
     python3 scripts/profile_opening.py [--log-rows 22] [--seed 0] [--k1-designs]
+    python3 scripts/profile_opening.py --proof [--log-rows 22] [--seed 0]
     python3 scripts/profile_opening.py --against parent
 
 
@@ -15,12 +17,25 @@ overlap), the port's launch counts for the same opening, K1's launches
 by level and batch size with their device time, and each launch of K3
 and K4 (stages, words), K5 (leaves, blob bytes, kernel) and K6 (pairs,
 kernel: one wide level or the tail to the root) with its device time. A launch's device time comes from the profiler's events of
-its kernel, matched in order to the launches the wrappers made.
+its kernel, matched in order to the launches the wrappers made. The torch
+ops whose kernels take the most device time are listed with their input
+shapes (the profiler records shapes), which names the call sites.
 
 --against DIR compares two trees on one card: DIR holds another checkout
 of the repo (for example `git archive <commit>` unpacked into `parent/`,
 which .gitignore lists); this script is copied into it and run there and
 here, each in a process of its own, in the order DIR, here, here, DIR.
+
+--proof profiles the whole proof instead (`constraint_system.prove.prove`
+on the u32_add system of 2^log-rows rows whose inputs
+`m3.gadgets.arith.u32_add_rows` draws from --seed, as `chip_smoke.py`
+proves it), and adds the device time by op family (the six kernels, torch
+gathers, copies and concatenations, reductions, float64 GEMMs, other
+elementwise kernels, fills) and, per prove phase (the prover's
+"prove.<phase>" profiler ranges, each ending in a synchronize), its wall
+time, the device time of the kernels that start inside it and its idle
+share; the zerocheck's three stages ("zerocheck.stage<i>" ranges, each
+ending in a copy to the host) the same way.
 
 --k1-designs profiles two more openings, one with every B128 product on
 K1's one-tile-per-block kernel and one with every B128 product on its
@@ -48,6 +63,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")
+    ap.add_argument("--proof", action="store_true")
     ap.add_argument("--against", metavar="DIR")
     args = ap.parse_args()
     if args.against:
@@ -60,7 +76,8 @@ def main() -> int:
             print(f"==== {label}: {root}", flush=True)
             rc |= subprocess.run([sys.executable, os.path.join(root, "scripts", "profile_opening.py"),
                                   "--log-rows", str(args.log_rows), "--seed", str(args.seed),
-                                  "--top", str(args.top)], cwd=root).returncode
+                                  "--top", str(args.top)] + ["--proof"] * args.proof,
+                                 cwd=root).returncode
         return rc
     if not torch.cuda.is_available():
         print("profile_opening: no CUDA device", file=sys.stderr)
@@ -74,7 +91,23 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    inst = chip_smoke.instance(args.log_rows, args.seed, torch.device("cuda"))
+    dev = torch.device("cuda")
+    if args.proof:
+        from binius_tpu_torch.constraint_system import prove as csp
+        from binius_tpu_torch.m3.gadgets import arith
+
+        what = "proof"
+        core, witness = arith.u32_add_system(
+            args.log_rows, *arith.u32_add_rows(args.log_rows, args.seed), dev)
+
+        def run():
+            return csp.prove(core, witness)
+    else:
+        what = "opening"
+        inst = chip_smoke.instance(args.log_rows, args.seed, dev)
+
+        def run():
+            return chip_smoke.open_commitment(inst)
 
     # the launches of K1 and K3-K6 in order: (wrapper name, arguments)
     calls = []
@@ -88,13 +121,14 @@ def main() -> int:
     cuda_lib.call = recording_call
 
     def profiled_opening():
-        chip_smoke.open_commitment(inst)   # warm-up: build, plans, tables
+        run()   # warm-up: build, plans, tables
         torch.cuda.synchronize()
         cuda_lib.reset_launches()
         calls.clear()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
-            chip_smoke.open_commitment(inst)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         return prof, wall_ms, dict(cuda_lib.launches), list(calls)
@@ -149,20 +183,68 @@ def main() -> int:
             us = sum(ev.time_range.elapsed_us() for _, ev in launches)
             print(f"{k} device ms over its launches: {us / 1e3:.4f}")
 
+    def families(kernels):
+        """Device ms by op family, from the device kernels' names."""
+        fams = [("K1-K6", "|".join(kernel_names.values())),
+                ("gather / index", r"index|[Gg]ather|Index"),
+                ("copy / cat", r"CatArray|[Cc]opy"),
+                ("reduce", r"[Rr]educe"),
+                ("float64 GEMM", r"gemm|cutlass|xmma|dot"),
+                ("fill", r"[Ff]ill"),
+                ("other elementwise", r"elementwise|Elementwise")]
+        sums = collections.defaultdict(lambda: [0.0, 0])
+        for ms, count, key in kernels:
+            fam = next((f for f, pat in fams if re.search(pat, key)), "other")
+            sums[fam][0] += ms
+            sums[fam][1] += count
+        print("device ms by op family (kernels):")
+        for fam, (ms, count) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {fam:20s} {ms:10.3f} ({count} kernels)")
+
+    def per_phase(prof):
+        """Wall ms, device ms and idle share of each prove phase."""
+        dev_evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                   and not ev.name.startswith(("prove.", "zerocheck."))]
+        print(f"{'phase':>16} {'wall ms':>10} {'device ms':>10} {'idle':>7}")
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA or not ev.name.startswith(("prove.",
+                                                                             "zerocheck.")):
+                continue
+            lo, hi = ev.time_range.start, ev.time_range.end
+            busy = sum(d.time_range.elapsed_us() for d in dev_evs
+                       if lo <= d.time_range.start < hi) / 1e3
+            wall = (hi - lo) / 1e3
+            print(f"{ev.name.removeprefix('prove.'):>16} {wall:10.3f} {busy:10.3f} "
+                  f"{1 - busy / wall if wall else 0:7.4f}")
+
     prof, wall_ms, launches, calls = profiled_opening()
 
     # the device's own events (kernels, copies, fills), not the host ops
-    # that launched them
+    # that launched them, nor the device spans of the prover's phase ranges
     kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+               if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+               and not ev.key.startswith(("prove.", "zerocheck."))]
     kernels.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
-    print(f"opening 2^{args.log_rows} rows under the profiler: wall {wall_ms:.3f} ms, device "
+    print(f"{what} 2^{args.log_rows} rows under the profiler: wall {wall_ms:.3f} ms, device "
           f"kernels {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     print(f"launches (port counters): {launches}")
     print(f"{'device ms':>10} {'calls':>6} {'mean us':>9}  kernel")
     for ms, count, key in kernels[:args.top]:
         print(f"{ms:10.3f} {count:6d} {ms / count * 1e3:9.2f}  {key[:110]}")
+
+    if args.proof:
+        families(kernels)
+        per_phase(prof)
+    # the torch ops whose kernels take the most device time, by input shape
+    ops = [(ev.device_time_total / 1e3, ev.count, ev.key, ev.input_shapes)
+           for ev in prof.key_averages(group_by_input_shape=True)
+           if ev.device_type == DeviceType.CPU and ev.key.startswith("aten::")
+           and ev.device_time_total > 0]
+    ops.sort(key=lambda t: -t[0])
+    print("torch ops by device ms (their kernels), with input shapes:")
+    for ms, count, key, shapes in ops[:12]:
+        print(f"{ms:10.3f} {count:6d}  {key} {str(shapes)[:90]}")
 
     per_launch(prof, calls)
 

@@ -136,6 +136,71 @@ def test_oracles_match_reference():
 
 
 def test_unported_shapes_raise():
+    """The shape that raised before the packed stage loop was ported (B128
+    twiddles) now transforms, through the stage loop, to the scalar
+    oracle's values; no shape the bitsliced gate admits is below K3's tile."""
     ntt = additive_ntt.AdditiveNTT(additive_ntt.NTTDomain.create(7, 5))
-    with pytest.raises(NotImplementedError):
-        ntt.forward(from_reference(_b128(32, seed=1), "cpu"), 7, (0, 5, 0), device="cpu")
+    data = _b128(32, seed=1)
+    got = ntt.forward(from_reference(data, "cpu"), 7, (0, 5, 0), device="cpu")
+    ref = jntt.AdditiveNTT(jntt.NTTDomain.create(7, 5))
+    assert tower.to_ints(7, got) == ref.forward_scalar(_columns(data, 0)[0], 7, 5)
+    assert not bitsliced_ntt.supported(7, 7, 1 << 15)
+    for n in (32, 64, 1 << 14):
+        assert not bitsliced_ntt.supported(5, 7, n)
+
+
+def _rand_level(level, n, seed):
+    if level == 7:
+        return _b128(n, seed)
+    return np.random.default_rng(seed).integers(0, 1 << (1 << level), n, dtype=np.uint64
+                                                ).astype(np.uint32)
+
+
+@pytest.mark.parametrize("tl,dl", [(3, 3), (5, 5), (7, 7), (3, 7), (5, 7)])
+@pytest.mark.parametrize("log_n", [4, 5, 6])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stage_loop_matches_reference(tl, dl, log_n, inverse):
+    """The packed stage loop at B8, B32 and B128 twiddles on data at or
+    above them, n = 16, 32, 64 (one column, a coset of a larger domain),
+    against the JAX package's scalar transforms."""
+    data = _rand_level(dl, 1 << log_n, seed=log_n + 10 * tl + dl)
+    ntt = additive_ntt.AdditiveNTT(additive_ntt.NTTDomain.create(tl, log_n + 1))
+    ref = jntt.AdditiveNTT(jntt.NTTDomain.create(tl, log_n + 1))
+    x = tower.from_numpy(dl, data, "cpu")
+    fn = ntt.inverse if inverse else ntt.forward
+    got = fn(x, dl, (0, log_n, 0), coset=1, coset_bits=1, device="cpu")
+    rfn = ref.inverse_scalar if inverse else ref.forward_scalar
+    assert tower.to_ints(dl, got) == rfn(tower.to_ints(dl, x), dl, log_n, coset=1, coset_bits=1)
+
+
+def test_stage_loop_zerocheck_shape_matches_reference():
+    """The univariate-skip zerocheck's transform: B8 data on B8 twiddles,
+    k = 7 stages over 5 rows x 2 suffixes (a batch that is not a power of
+    two), inverse on coset 0 then forward on coset 1 of a 2^8 domain,
+    against the JAX package's stage loop (`_transform_jit`)."""
+    import jax.numpy as jnp
+
+    data = _rand_level(3, 10 << 7, seed=4)
+    ntt = additive_ntt.AdditiveNTT(additive_ntt.NTTDomain.create(3, 8))
+    x = tower.from_numpy(3, data, "cpu").reshape(5, 2 << 7)
+    coeffs = ntt.inverse(x, 3, (0, 7, 0), 0, 1, device="cpu")
+    got = ntt.forward(coeffs, 3, (0, 7, 0), 1, 1, device="cpu")
+    ref = jntt.AdditiveNTT(jntt.NTTDomain.create(3, 8))
+    want = []
+    for row in data.reshape(5, 2 << 7):
+        rc = ref.inverse(jnp.asarray(row), 3, (0, 7, 1), 0, 1, bitsliced=False)
+        want.append(np.asarray(ref.forward(rc, 3, (0, 7, 1), 1, 1, bitsliced=False)))
+    assert np.array_equal(to_reference(got), np.stack(want))
+
+
+@pytest.mark.parametrize("log_x,log_y,skip", [(4, 4, 1), (4, 6, 1), (2, 5, 0)])
+def test_bitsliced_transform_matches_scalar(log_x, log_y, skip):
+    """The bitsliced path's plain version, called directly at shapes the
+    gate now sends to the stage loop."""
+    data = _b128(1 << (log_x + log_y), seed=log_y + skip)
+    dom = additive_ntt.NTTDomain.create(5, log_y)
+    got = bitsliced_ntt.transform(dom, from_reference(data, "cpu"), 7, (log_x, log_y, 0),
+                                  skip_rounds=skip)
+    ref = jntt.AdditiveNTT(jntt.NTTDomain.create(5, log_y))
+    want = [ref.forward_scalar(col, 7, log_y, skip_rounds=skip) for col in _columns(data, log_x)]
+    assert _columns(to_reference(got), log_x) == want
