@@ -3,7 +3,9 @@
 The port of `binius_tpu/constraint_system/witness.py`. A witness is a
 dict: oracle id -> (tower level, tensor), B1 columns bit-packed
 (`tower.P1`) where they are long enough. Ported kinds: transparent,
-repeating, linear combination, shifted and composite oracles; packed,
+repeating, linear combination, shifted and composite oracles (an XOR of
+bit-packed B1 columns and a shift of one within 32- or 64-bit blocks
+work on the packed words); packed,
 projected and zero-padded oracles raise `NotImplementedError` (no u32_add
 system reaches them).
 """
@@ -31,6 +33,26 @@ def _device(witness: dict):
     return next(iter(witness.values()))[1].device
 
 
+def _packed_b1_combination(oracles: om.OracleSet, witness: dict, o: om.Oracle):
+    """The packed words of a linear combination of bit-packed B1 columns
+    with 0/1 coefficients and offset (an XOR of columns, as keccak's theta
+    columns are), or None when the combination is not of that kind."""
+    if o.lc_offset > 1 or any(c > 1 for c in o.lc_coeffs):
+        return None
+    for iid in o.inner:
+        if iid not in witness:
+            materialize(oracles, witness, iid)
+    if not o.inner or any(witness[iid][0] != tower.P1 for iid in o.inner):
+        return None
+    acc = None
+    for iid, coeff in zip(o.inner, o.lc_coeffs):
+        if coeff:
+            acc = witness[iid][1] if acc is None else acc ^ witness[iid][1]
+    if acc is None:
+        acc = torch.zeros_like(witness[o.inner[0]][1])
+    return ~acc if o.lc_offset else acc
+
+
 def materialize(oracles: om.OracleSet, witness: dict, oid: int):
     """(level, data) of an oracle, computing a virtual oracle from its inner
     witnesses and caching it into `witness` (bit-packed where it is B1).
@@ -42,8 +64,12 @@ def materialize(oracles: om.OracleSet, witness: dict, oid: int):
         out = o.transparent.mle(_device(witness))
     elif o.variant == om.REPEATING:
         ilvl, idata = materialize(oracles, witness, o.inner[0])
-        out = (ilvl, torch.cat([idata] * (1 << o.log_degree)))
+        out = (ilvl, idata.repeat(1 << o.log_degree, *[1] * (idata.ndim - 1)))
     elif o.variant == om.LINEAR_COMBINATION:
+        words = _packed_b1_combination(oracles, witness, o)
+        if words is not None:
+            witness[oid] = (tower.P1, words)
+            return tower.resolve_p1(*witness[oid])
         inner = [materialize(oracles, witness, iid) for iid in o.inner]
         dev = inner[0][1].device if inner else _device(witness)
         lc_level = max([_int_level(o.lc_offset), *(_int_level(c) for c in o.lc_coeffs),
@@ -68,10 +94,10 @@ def materialize(oracles: om.OracleSet, witness: dict, oid: int):
         if inner_id not in witness:
             materialize(oracles, witness, inner_id)
         ilvl, idata = witness[inner_id]
-        if ilvl == tower.P1 and o.shift_block_bits == 5:
-            # one block per packed word: shift the words
+        if ilvl == tower.P1 and o.shift_block_bits in (5, 6):
+            # one block per packed word or pair of words: shift the words
             witness[oid] = (tower.P1, shift_ind.apply_shift_words(
-                o.shift_variant, o.shift_offset, idata))
+                o.shift_variant, o.shift_block_bits, o.shift_offset, idata))
             return tower.resolve_p1(*witness[oid])
         ilvl, idata = tower.resolve_p1(ilvl, idata)
         out = (ilvl, shift_ind.apply_shift_device(

@@ -174,6 +174,45 @@ def pow_py(level: int, a: int, e: int) -> int:
 mul, square, invert, pow = mul_py, square_py, invert_py, pow_py
 
 
+def apply_linmap(cols: list[int], x: int) -> int:
+    """The F2-linear map with column bitmasks `cols` applied to `x`."""
+    out = 0
+    j = 0
+    while x:
+        if x & 1:
+            out ^= cols[j]
+        x >>= 1
+        j += 1
+    return out
+
+
+def invert_matrix(cols: list[int], n: int) -> list[int]:
+    """Invert an n x n F2 matrix given as column bitmasks (Gauss-Jordan)."""
+    rows = []   # rows of [A | I]: row i has bit j = A[i][j]
+    for i in range(n):
+        r = 0
+        for j in range(n):
+            if (cols[j] >> i) & 1:
+                r |= 1 << j
+        rows.append((r, 1 << i))
+    for col in range(n):
+        piv = next((k for k in range(col, n) if (rows[k][0] >> col) & 1), None)
+        if piv is None:
+            raise ValueError("singular matrix")
+        rows[col], rows[piv] = rows[piv], rows[col]
+        for k in range(n):
+            if k != col and (rows[k][0] >> col) & 1:
+                rows[k] = (rows[k][0] ^ rows[col][0], rows[k][1] ^ rows[col][1])
+    inv_cols = []   # rows[i][1] is row i of A^-1
+    for j in range(n):
+        c = 0
+        for i in range(n):
+            if (rows[i][1] >> j) & 1:
+                c |= 1 << i
+        inv_cols.append(c)
+    return inv_cols
+
+
 # -- B8 tables for the device base case (levels <= 3) -----------------------
 
 @functools.lru_cache(maxsize=None)

@@ -226,17 +226,24 @@ def kernel_tables_np() -> np.ndarray:
                            np.array(qc, dtype=np.uint64).reshape(-1)])
 
 
+@functools.lru_cache(maxsize=None)
+def _col_sources(is_q: bool) -> tuple:
+    """Per output column c, the input column that row i's byte comes from."""
+    shifts = SHIFTS_Q if is_q else SHIFTS_P
+    return tuple(tuple((c + shifts[i]) % 8 for i in range(ROWS)) for c in range(COLS))
+
+
 def _permute_cols(cols: list[int], is_q: bool) -> list[int]:
     """P or Q on a state given as 8 column ints."""
-    T = _ttables()
+    T0, T1, T2, T3, T4, T5, T6, T7 = _ttables()
     consts = _col_consts()[1 if is_q else 0]
-    shifts = SHIFTS_Q if is_q else SHIFTS_P
+    src = _col_sources(is_q)
     for r in range(ROUNDS):
-        cols = [c ^ k for c, k in zip(cols, consts[r])]
-        cols = [
-            functools.reduce(lambda a, b: a ^ b, (
-                T[i][(cols[(c + shifts[i]) % 8] >> (8 * i)) & 0xFF] for i in range(ROWS)))
-            for c in range(COLS)]
+        x = [c ^ k for c, k in zip(cols, consts[r])]
+        cols = [T0[x[a] & 0xFF] ^ T1[(x[b] >> 8) & 0xFF] ^ T2[(x[c] >> 16) & 0xFF]
+                ^ T3[(x[d] >> 24) & 0xFF] ^ T4[(x[e] >> 32) & 0xFF] ^ T5[(x[f] >> 40) & 0xFF]
+                ^ T6[(x[g] >> 48) & 0xFF] ^ T7[x[h] >> 56]
+                for a, b, c, d, e, f, g, h in src]
     return cols
 
 

@@ -1,11 +1,15 @@
 """M3 table builder: typed columns over the core constraint system.
 
-The port of the part of `binius_tpu/m3/builder/table.py` that a u32_add
-table needs: tables own committed and shifted columns and zero
-constraints, and `compile` lowers them to the core `ConstraintSystem`
-with its sizeless symbolic form (whose canonical digest the proof observes
-first). The JAX builder's other column kinds, flushes, non-zero columns
-and size specs are not ported.
+The port of the part of `binius_tpu/m3/builder/table.py` that tables
+without channels need: tables own committed, shifted, computed, constant
+and fixed columns and zero constraints, and `compile` lowers them to the
+core `ConstraintSystem` with its sizeless symbolic form (whose canonical
+digest the proof observes first). A computed column lowers to a linear
+combination oracle when its expression is linear and to a composite one
+otherwise; a constant or fixed column to a one-row transparent repeated
+over the rows. The JAX builder's other column kinds (packed, selected,
+structured, exponents), flushes, non-zero columns and size specs are not
+ported.
 
 A column with 2^v values per row becomes an oracle with log_rows + v
 variables; the value index takes the LOW v bits, the row index the high
@@ -20,6 +24,7 @@ from ...constraint_system import canonical as canon
 from ...constraint_system import oracle as om
 from ...constraint_system.system import ConstraintSet, ConstraintSystem
 from ...math.arith import ArithExpr
+from ...protocols.transparent import Constant, MLEFromValues
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +41,14 @@ class Col:
 @dataclasses.dataclass
 class _ColumnDef:
     col: Col
-    kind: str                   # committed | shifted
-    inner: object = None        # shifted: the inner Col
+    kind: str                   # committed | shifted | computed | constant | fixed
+    inner: object = None        # shifted: the inner Col; computed: the ArithExpr;
+                                # fixed: the pattern
     shift_offset: int = 0
     shift_block_bits: int = 0
     shift_variant: str = ""
+    expr_cols: tuple = ()       # computed: the Cols of the expression's variables
+    constant: int = 0
 
 
 class TableBuilder:
@@ -64,6 +72,29 @@ class TableBuilder:
         c = self._new_col(inner.level, inner.log_values_per_row, name)
         self.columns.append(_ColumnDef(c, "shifted", inner=inner, shift_offset=offset,
                                        shift_block_bits=block_bits, shift_variant=variant))
+        return c
+
+    def add_computed(self, name: str, expr: ArithExpr, cols: list) -> Col:
+        """A column defined as `expr` over var(i) = cols[i], all of one
+        values-per-row (B128 in the oracle set; its witness is stored at the
+        smallest level that holds it)."""
+        vpr = cols[0].log_values_per_row
+        assert all(c.log_values_per_row == vpr for c in cols)
+        c = self._new_col(7, vpr, name)
+        self.columns.append(_ColumnDef(c, "computed", inner=expr, expr_cols=tuple(cols)))
+        return c
+
+    def add_constant(self, name: str, level: int, value: int,
+                     log_values_per_row: int = 0) -> Col:
+        c = self._new_col(level, log_values_per_row, name)
+        self.columns.append(_ColumnDef(c, "constant", constant=value))
+        return c
+
+    def add_fixed(self, name: str, level: int, pattern: list, log_values_per_row: int) -> Col:
+        """A column that repeats the public per-row pattern of 2^v values."""
+        assert len(pattern) == 1 << log_values_per_row
+        c = self._new_col(level, log_values_per_row, name)
+        self.columns.append(_ColumnDef(c, "fixed", inner=tuple(int(v) for v in pattern)))
         return c
 
     def assert_zero(self, name: str, cols: list, expr: ArithExpr, group: str = "") -> None:
@@ -99,22 +130,57 @@ class M3ConstraintSystem:
         sym_csets: list = []
         assert len(table_log_rows) == len(self.tables)
         for t_idx, (t, log_rows) in enumerate(zip(self.tables, table_log_rows)):
+            def rec(name, vpr, level, variant):
+                sym_oracles.append(canon.SymbolicOracle(name, t_idx, vpr, level, variant))
+
             for cd in t.columns:
                 col = cd.col
-                n_vars = log_rows + col.log_values_per_row
+                vpr = col.log_values_per_row
+                n_vars = log_rows + vpr
                 key = (t.table_id, col.index)
                 nm = f"{t.name}.{col.name}"
                 if cd.kind == "committed":
                     oracle_map[key] = oracles.add_committed(n_vars, col.level, nm)
-                    variant = ("committed",)
-                else:
+                    rec(nm, vpr, col.level, ("committed",))
+                elif cd.kind == "shifted":
                     inner_id = oracle_map[(t.table_id, cd.inner.index)]
                     oracle_map[key] = oracles.add_shifted(
                         inner_id, cd.shift_offset, cd.shift_block_bits, cd.shift_variant, nm)
-                    variant = ("shifted", inner_id, cd.shift_offset, cd.shift_block_bits,
-                               cd.shift_variant)
-                sym_oracles.append(canon.SymbolicOracle(
-                    nm, t_idx, col.log_values_per_row, col.level, variant))
+                    rec(nm, vpr, col.level, ("shifted", inner_id, cd.shift_offset,
+                                             cd.shift_block_bits, cd.shift_variant))
+                elif cd.kind == "computed":
+                    expr = cd.inner
+                    inner_ids = [oracle_map[(t.table_id, c.index)] for c in cd.expr_cols]
+                    if expr.degree() > 1:
+                        oracle_map[key] = oracles.add_composite(n_vars, inner_ids, expr, nm)
+                        rec(nm, vpr, 7, ("composite", tuple(inner_ids),
+                                         canon.circuit_steps(expr)))
+                    else:
+                        terms, offset = _linearize(expr, len(cd.expr_cols))
+                        lc_terms = list(zip(inner_ids, terms))
+                        oracle_map[key] = oracles.add_linear_combination(
+                            n_vars, lc_terms, offset, nm)
+                        rec(nm, vpr, 7, ("linear_combination", offset, tuple(lc_terms)))
+                elif cd.kind == "constant":
+                    # a one-row transparent `{name}_single` repeated over the
+                    # rows as `{name}`, the column's oracle
+                    tid = oracles.add_transparent(Constant(vpr, cd.constant, col.level),
+                                                  nm + "_single")
+                    rec(nm + "_single", vpr, col.level, (
+                        "transparent", "Constant",
+                        (("usize", vpr), ("f128", cd.constant), ("usize", col.level))))
+                    oracle_map[key] = oracles.add_repeating(tid, log_rows, nm)
+                    rec(nm, vpr, col.level, ("repeating", tid))
+                elif cd.kind == "fixed":
+                    tid = oracles.add_transparent(MLEFromValues(cd.inner, col.level),
+                                                  nm + ".pattern")
+                    rec(nm + ".pattern", vpr, col.level, (
+                        "transparent", "MultilinearExtensionTransparent",
+                        (("vec_f128", cd.inner),)))
+                    oracle_map[key] = oracles.add_repeating(tid, log_rows, nm)
+                    rec(nm, vpr, col.level, ("repeating", tid))
+                else:
+                    raise NotImplementedError(f"{cd.kind} columns are not ported")
 
             # one constraint set per partition, ascending values-per-row: the
             # used columns in declaration order, the constraints in call order
@@ -147,3 +213,15 @@ class M3ConstraintSystem:
             tuple(("arbitrary",) for _ in self.tables))
         return ConstraintSystem(oracles, constraint_sets, [], self.n_channels, [],
                                 symbolic=symbolic), oracle_map
+
+
+def _linearize(expr: ArithExpr, n_vars: int):
+    """(coefficient per variable, constant offset) of a degree <= 1
+    expression, by evaluation at the unit vectors (characteristic 2)."""
+    offset = expr.evaluate_scalar(7, [0] * n_vars)
+    coeffs = []
+    for i in range(n_vars):
+        pt = [0] * n_vars
+        pt[i] = 1
+        coeffs.append(expr.evaluate_scalar(7, pt) ^ offset)
+    return coeffs, offset

@@ -1,10 +1,10 @@
 """M3 witness index: host column buffers lowered to a device witness.
 
-The port of the part of `binius_tpu/m3/builder/witness.py` that a u32_add
-table needs (numpy in place of the JAX module's arrays): the user fills
-committed columns, with typed helpers for bit-packed integers, and
+The port of `binius_tpu/m3/builder/witness.py` for power-of-two tables
+(numpy in place of the JAX module's arrays): the user fills committed
+columns, with typed helpers for bit-packed integers, and
 `to_core_witness` puts them on the device and materializes every virtual
-column from its oracle's definition.
+column (shifted, computed, constant, fixed) from its oracle's definition.
 """
 
 from __future__ import annotations
@@ -21,17 +21,19 @@ class TableWitness:
         self.table = table
         self.log_rows = log_rows
         self.columns: dict = {}  # col index -> numpy array of 2^log_rows << vpr values
-        self.words: dict = {}    # col index -> uint32 P1 words (B1, 32 values per row)
+        self.words: dict = {}    # col index -> uint32 P1 words of a B1 column
 
     @property
     def n_rows(self) -> int:
         return 1 << self.log_rows
 
     def set_column(self, col, values) -> None:
-        """All 2^log_rows rows of a column's values (numpy or a list)."""
+        """All 2^log_rows rows of a column's values (numpy or a list), 2^v
+        values per row, row-major."""
         values = np.asarray(values)
         assert values.shape[0] == self.n_rows << col.log_values_per_row, values.shape
         self.columns[col.index] = values
+        self.words.pop(col.index, None)
 
     def set_packed_ints(self, col, row_values) -> None:
         """A B1 column of 2^v values per row from one integer per row: bit i
@@ -40,13 +42,35 @@ class TableWitness:
         w = 1 << col.log_values_per_row
         assert w <= 64
         a = np.asarray(row_values, dtype=np.uint64)
-        if w == 32 and self.n_rows >= 4:
-            # one row's values are one packed word: keep the words
-            assert a.shape[0] == self.n_rows
-            self.words[col.index] = a.astype(np.uint32)
+        assert a.shape[0] == self.n_rows
+        if w in (32, 64) and (self.n_rows * w) >> tower.P1_MIN_VARS:
+            # one row's values are one or two whole words (little-endian):
+            # keep the P1 words
+            self.words[col.index] = (a.astype(np.uint32) if w == 32
+                                     else np.ascontiguousarray(a).view(np.uint32))
+            self.columns.pop(col.index, None)
             return
         bits = (a[:, None] >> np.arange(w, dtype=np.uint64)) & np.uint64(1)
         self.set_column(col, bits.reshape(-1).astype(np.uint32))
+
+    def get_column(self, col) -> list:
+        """The column's values, row-major, as ints."""
+        if col.index in self.words:
+            bits = np.unpackbits(self.words[col.index].view(np.uint8), bitorder="little")
+            return [int(x) for x in bits]
+        return [int(x) for x in self.columns[col.index]]
+
+    def get_packed_ints(self, col) -> list:
+        """One integer per row from a B1 column of 2^v values per row."""
+        w = 1 << col.log_values_per_row
+        if col.index in self.words:
+            words = self.words[col.index]
+            if w == 32:
+                return [int(x) for x in words]
+            return [int(x) for x in words.view(np.uint64)]
+        vals = np.asarray(self.columns[col.index], dtype=np.uint64).reshape(self.n_rows, w)
+        rows = np.bitwise_or.reduce(vals << np.arange(w, dtype=np.uint64), axis=1)
+        return [int(x) for x in rows]
 
 
 class WitnessIndex:

@@ -42,6 +42,18 @@ class EvaluationDomain:
         n = self.size
         assert len(values) == n
         coeffs = [0] * n
+        for v, basis in zip(values, self._lagrange_basis(value_level)):
+            if v:
+                for d, c in enumerate(basis):
+                    coeffs[d] ^= scalar.mul(value_level, v, c)
+        return coeffs
+
+    @functools.lru_cache(maxsize=None)
+    def _lagrange_basis(self, value_level: int) -> tuple:
+        """Per point i, the coefficients of the Lagrange polynomial that is
+        1 at point i and 0 at the others."""
+        n = self.size
+        out = []
         for i in range(n):
             basis = [1]
             den = 1
@@ -54,10 +66,9 @@ class EvaluationDomain:
                     nxt[d + 1] ^= c
                 basis = nxt
                 den = scalar.mul(value_level, den, self.points[i] ^ self.points[j])
-            w = scalar.mul(value_level, values[i], scalar.invert(value_level, den))
-            for d, c in enumerate(basis):
-                coeffs[d] ^= scalar.mul(value_level, w, c)
-        return coeffs
+            inv = scalar.invert(value_level, den)
+            out.append(tuple(scalar.mul(value_level, inv, c) for c in basis))
+        return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ tower basis) and a composite one an eq-indicator sumcheck; each wave's
 sumchecks are batch-proven (`sumcheck.prove.batch_prove`, folding low to
 high), and their reduced claims form the next wave, until only claims on
 committed oracles remain. Duplicate (oracle, point) claims are dropped
-deterministically on both sides.
+deterministically on both sides. Per wave, the prover evaluates the
+linear combinations' inner columns in one batched evaluation per (level,
+n_vars, point) group, and both sides take the shift indicators of all
+the wave's shift claims in one stacked carry DP.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ class _Walker:
         self.committed: list[EvalcheckClaim] = []
         self.seen: dict = {}
         self._eq_memo: dict = {}
+        self._wit_evals: dict = {}  # (oracle id, point) -> evaluation
 
     def _eq_expansion(self, point: tuple) -> torch.Tensor:
         e = self._eq_memo.get(point)
@@ -75,6 +79,26 @@ class _Walker:
             e = mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, list(point), self.device))
             self._eq_memo[point] = e
         return e
+
+    def _prefetch_witness_evals(self, queue) -> None:
+        """Evaluate every inner oracle of the queue's linear-combination
+        claims, which the prover sends: one batched evaluation per (level,
+        n_vars, point) group of multilinears."""
+        groups: dict = {}
+        for claim in queue:
+            o = self.oracles[claim.oracle_id]
+            if o.variant != om.LINEAR_COMBINATION or _dedup_key(claim) in self.seen:
+                continue
+            for iid in o.inner:
+                if (iid, claim.point) not in self._wit_evals:
+                    key = (self.witness[iid][0], self.oracles[iid].n_vars, claim.point)
+                    groups.setdefault(key, {})[iid] = None
+        for (level, n, point), iids in groups.items():
+            stack = torch.stack([self.witness[i][1] for i in iids])
+            _, out = mle.batched_evaluate_partial_high(level, stack, n,
+                                                       self._eq_expansion(point), 0)
+            for i, v in zip(iids, tower.to_ints(LEVEL, out[:, 0])):
+                self._wit_evals[(i, point)] = v
 
     def _io_scalars(self, values_if_prover):
         if self.is_prover:
@@ -85,6 +109,8 @@ class _Walker:
     def run(self, claims: list[EvalcheckClaim]) -> list[EvalcheckClaim]:
         queue = list(claims)
         while queue:
+            if self.is_prover:
+                self._prefetch_witness_evals(queue)
             shift_entries: list[_ShiftEntry] = []
             composite_entries: list[_CompositeEntry] = []
             next_queue: list[EvalcheckClaim] = []
@@ -115,7 +141,7 @@ class _Walker:
             next_queue.append(EvalcheckClaim(inner.id, claim.point[:inner.n_vars], claim.eval))
         elif o.variant == om.LINEAR_COMBINATION:
             if self.is_prover:
-                evals = [self._eval_witness(i, claim.point) for i in o.inner]
+                evals = [self._wit_evals[(i, claim.point)] for i in o.inner]
                 self._io_scalars(evals)
             else:
                 evals = self._io_scalars(len(o.inner))
@@ -132,13 +158,6 @@ class _Walker:
             composite_entries.append(_CompositeEntry(claim, o))
         else:
             raise NotImplementedError(f"evalcheck for oracle variant {o.variant} is not ported")
-
-    def _eval_witness(self, oid: int, point) -> int:
-        level, data = self.witness[oid]
-        n = self.oracles[oid].n_vars
-        _, out = mle.batched_evaluate_partial_high(level, data[None], n,
-                                                   self._eq_expansion(tuple(point)), 0)
-        return tower.to_ints(LEVEL, out[0, 0])[0]
 
     def _shift_pair_stack(self, entries: list[_ShiftEntry], b: int) -> torch.Tensor:
         """(2k, 2^b, 4) B128 stack [proj_0, ind_0, proj_1, ind_1, ...] for k
@@ -226,18 +245,25 @@ class _Walker:
             ml_evals, challenges = ver.multilinear_evals, ver.challenges
 
         n_rounds = claims[0].n_vars if claims else 0
+        points = [sc_verify.claim_point(n_rounds, nv, challenges, order_high=False)
+                  for _, _, nv in specs]
+        if not self.is_prover:
+            # the wave's shift-indicator checks, as one stacked carry DP
+            shifts = [(i, e.oracle) for i, (kind, e, _) in enumerate(specs) if kind == "shift"]
+            wants = dict(zip([i for i, _ in shifts], shift_ind.evaluate_scalar_batch(
+                [o.shift_variant for _, o in shifts], [o.shift_block_bits for _, o in shifts],
+                [o.shift_offset for _, o in shifts],
+                [list(specs[i][1].claim.point[:o.shift_block_bits]) for i, o in shifts],
+                [list(points[i]) for i, _ in shifts])))
         new_claims = []
-        for (kind, e, nv), evals in zip(specs, ml_evals):
+        for i, ((kind, e, nv), evals) in enumerate(zip(specs, ml_evals)):
             o = e.oracle
-            pt = sc_verify.claim_point(n_rounds, nv, challenges, order_high=False)
+            pt = points[i]
             if kind == "shift":
                 b = o.shift_block_bits
                 proj_eval, ind_eval = evals
-                if not self.is_prover:
-                    want = shift_ind.evaluate_scalar(o.shift_variant, b, o.shift_offset,
-                                                     list(e.claim.point[:b]), list(pt))
-                    if ind_eval != want:
-                        raise ValueError("shift indicator evaluation mismatch")
+                if not self.is_prover and ind_eval != wants[i]:
+                    raise ValueError("shift indicator evaluation mismatch")
                 new_claims.append(EvalcheckClaim(o.inner[0], tuple(pt) + tuple(e.claim.point[b:]),
                                                  proj_eval))
             else:

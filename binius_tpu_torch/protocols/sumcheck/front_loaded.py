@@ -28,6 +28,14 @@ def batch_weighted_value(coeff: int, values: list[int]) -> int:
     return scalar.mul(LEVEL, coeff, acc)
 
 
+def powers(c: int, n: int) -> list[int]:
+    """[c, c^2, ..., c^n]: the weights of a claim's n composites."""
+    out = [c]
+    for _ in range(n - 1):
+        out.append(scalar.mul(LEVEL, out[-1], c))
+    return out[:n]
+
+
 class FrontLoadedBatchProver:
     """Provers must be sorted ascending by n_vars, order_high folding.
 
@@ -37,10 +45,12 @@ class FrontLoadedBatchProver:
     Provers with `eq_ind_challenges` set skip their position-0 (eq indicator)
     eval in the transcript — the verifier reconstructs it.
 
-    A prover may carry several claims (`multi_claim = True`): it consumes
-    one batching coefficient per claim, its `compute_round_polys`/`finish`
-    return one entry per claim, and the transcript stays byte-identical to
-    separate per-claim provers.
+    A prover may carry several claims (`multi_claim = True`), each of one
+    composite: it consumes one batching coefficient per claim, its
+    `finish` returns one entry per claim, and the transcript stays
+    byte-identical to separate per-claim provers. Each round mixes a
+    prover's composites with their weights on the device
+    (`compute_mixed_round_poly`) before one interpolation.
     """
 
     def __init__(self, provers: list, transcript, coeffs: list | None = None):
@@ -57,6 +67,11 @@ class FrontLoadedBatchProver:
             n = getattr(p, "n_claims", 1)
             self.coeffs.append(list(coeffs[pos:pos + n]))
             pos += n
+        # per prover, the weights of its composites: one coefficient per
+        # claim of a multi-claim prover, else the powers of its coefficient
+        self.weights: list = [list(cs) if getattr(p, "multi_claim", False)
+                              else powers(cs[0], len(p.claim.composite_sums))
+                              for p, cs in zip(provers, self.coeffs)]
         self.round = 0
         self.multilinear_evals: list = []  # claim-order final evals (incl. eq)
         self.finish_rounds: list = []      # round at which each claim finished
@@ -65,6 +80,7 @@ class FrontLoadedBatchProver:
         while self.provers and self.provers[0].n_vars == self.round:
             p = self.provers.pop(0)
             self.coeffs.pop(0)
+            self.weights.pop(0)
             finished = p.finish()
             per_claim = finished if getattr(p, "multi_claim", False) else [finished]
             for evals in per_claim:
@@ -77,16 +93,8 @@ class FrontLoadedBatchProver:
         w = transcript.message()
         self._finish_ready(w)
         combined: list[int] = []
-        for p, cs in zip(self.provers, self.coeffs):
-            polys = p.compute_round_polys()
-            per_claim = polys if getattr(p, "multi_claim", False) else [polys]
-            assert len(per_claim) == len(cs)
-            for claim_polys, c in zip(per_claim, cs):
-                weights = [c]
-                for _ in range(len(claim_polys) - 1):
-                    weights.append(scalar.mul(LEVEL, weights[-1], c))
-                for coeffs_j, wgt in zip(claim_polys, weights):
-                    combined = common.add_coeffs(combined, common.scale_coeffs(coeffs_j, wgt))
+        for p, weights in zip(self.provers, self.weights):
+            combined = common.add_coeffs(combined, p.compute_mixed_round_poly(weights))
         deg = max((max(cs.composition.degree() for cs in p.claim.composite_sums)
                    if p.claim.composite_sums else 0 for p in self.provers), default=0)
         combined = combined + [0] * (deg + 1 - len(combined))

@@ -12,10 +12,14 @@ device. A round takes the two halves of the folding variable as views
 (the high half first when `order_high`, else the even and odd rows),
 extrapolates them to the domain's other points, lays the points side by
 side along the element axis and evaluates each composition once over all
-of them, with no index gather of the stack in the round; the XOR-reduced
-values cross to the host, which interpolates the round polynomials. A
-product prover reorders its rows once, at construction, so that the
-composition operands are two contiguous blocks. The JAX package's
+of them. Compositions of one shape (after `compact_compositions`) are one
+evaluation over a gather of their members' rows (`evaluate_grouped`:
+keccak's 600 chi constraints are two shapes). The XOR-reduced sums are
+mixed with the batch's weights on the device, and only the mixed sums
+cross to the host, which interpolates one round polynomial per prover
+(`compute_mixed_round_poly`; interpolation is linear). A product prover
+reorders its rows once, at construction, so that the composition operands
+are two contiguous blocks. The JAX package's
 power-of-4 shape buckets, streamed chunks, batch gates and mesh placement
 exist for XLA's compile cache, program size and the TPU mesh, and are not
 carried over.
@@ -67,24 +71,101 @@ def _fold(stack: torch.Tensor, n_remaining: int, order_high: bool, challenge: in
     return e0 ^ tower.mul(LEVEL, e0 ^ e1, r)
 
 
-def _rows(vals: torch.Tensor, n_points: int) -> list:
-    """(k, n_points * half, 4) composite values -> per k, the n_points
-    XOR-reduced values as ints (one host copy)."""
-    k = vals.shape[0]
-    red = tower.xor_reduce(vals.reshape(k, n_points, -1, 4), 2)
-    flat = tower.to_ints(LEVEL, red)
-    return [flat[i * n_points:(i + 1) * n_points] for i in range(k)]
+def _point_sums(vals: torch.Tensor, n_points: int) -> torch.Tensor:
+    """(k, n_points * half, 4) composite values -> (k, n_points, 4) sums."""
+    return tower.xor_reduce(vals.reshape(vals.shape[0], n_points, -1, 4), 2)
+
+
+def _interpolate_mixed(domain: EvaluationDomain, sums: torch.Tensor,
+                       weights: list[int]) -> list[int]:
+    """sum_j weights[j] * (round polynomial j): the point sums are mixed on
+    the device before the one interpolation (which is linear)."""
+    w = tower.from_ints(LEVEL, weights, sums.device)
+    mixed = tower.xor_reduce(tower.mul(LEVEL, sums, w[:, None, :]), 0)
+    return domain.interpolate(LEVEL, tower.to_ints(LEVEL, mixed))
+
+
+def _group_comp_specs(comp_specs) -> list:
+    """Partition compact compositions [(expr over its own used variables,
+    used multilinear indices)] by identical structure: [(expr, used rows
+    per member, original indices)]. A claim of one table partition holds
+    many copies of a few expressions over different columns (keccak: 600
+    compositions of two shapes); each shape evaluates once over a stack
+    of its members' inputs."""
+    order: dict = {}
+    for ci, (cexpr, used) in enumerate(comp_specs):
+        order.setdefault((cexpr, len(used)), []).append((tuple(used), ci))
+    return [(cexpr, tuple(u for u, _ in entries), tuple(ci for _, ci in entries))
+            for (cexpr, _k), entries in order.items()]
+
+
+def compact_compositions(exprs) -> list:
+    """[(expr remapped onto the variables it uses, those variables)], the
+    variables numbered in the order they first appear in the expression,
+    so that expressions of one shape over differently ordered columns
+    compact to the same expression."""
+    out = []
+    for e in exprs:
+        used: dict = {}
+        stack = [e]
+        while stack:
+            node = stack.pop()
+            if node.op == "var":
+                used.setdefault(node.value, len(used))
+            else:
+                stack.extend(reversed(node.args))
+        out.append((e.remap_vars(used), tuple(used)))
+    return out
+
+
+def evaluate_grouped(level: int, groups: list, rows: torch.Tensor) -> torch.Tensor:
+    """Every composition of `groups` (`_group_comp_specs`) over the stack
+    `rows` (m, ...) at `level`: (n_comps, ...), in the original order. A
+    shape of G members is one evaluation over a (G, k, ...) gather of
+    their k inputs each."""
+    parts, order = [], []
+    for cexpr, used_rows, origs in groups:
+        if len(origs) == 1:
+            vals = cexpr.evaluate(level, [rows[u] for u in used_rows[0]])[None]
+        else:
+            idx = torch.tensor(used_rows, dtype=torch.long, device=rows.device)
+            sub = rows[idx]                                   # (G, k, ...)
+            vals = cexpr.evaluate(level, [sub[:, i] for i in range(idx.shape[1])])
+        parts.append(vals.expand(len(origs), *rows.shape[1:]))
+        order.extend(origs)
+    return in_order(parts, order)
+
+
+def group_by_level(mls: list) -> dict:
+    """{level: indices of the multilinears [(level, data)] at it}."""
+    groups: dict = {}
+    for i, (lvl, _) in enumerate(mls):
+        groups.setdefault(lvl, []).append(i)
+    return groups
+
+
+def in_order(parts: list, order: list) -> torch.Tensor:
+    """Concatenated groups of rows back in their original order: `order`
+    lists the original index of each concatenated row."""
+    full = torch.cat(parts) if len(parts) > 1 else parts[0]
+    if order != list(range(len(order))):
+        inv = [0] * len(order)
+        for pos, i in enumerate(order):
+            inv[i] = pos
+        full = full[torch.tensor(inv, dtype=torch.long, device=full.device)]
+    return full
 
 
 def _stack(multilinears, n_vars: int) -> torch.Tensor:
     """[(level, data)] of 2^n_vars elements (bit-packed B1 allowed) -> one
-    (m, 2^n_vars, 4) B128 stack."""
-    cols = []
-    for lvl, d in multilinears:
-        lvl, d = tower.resolve_p1(lvl, d)
-        d = d.reshape(tower.elem_shape(lvl, (1 << n_vars,)))
-        cols.append(tower.embed(lvl, LEVEL, d) if lvl < LEVEL else d)
-    return torch.stack(cols)
+    (m, 2^n_vars, 4) B128 stack, built per level in a few batched ops."""
+    parts, order = [], []
+    for lvl, idxs in group_by_level(multilinears).items():
+        lvl, d = tower.resolve_p1(lvl, torch.stack([multilinears[i][1] for i in idxs]))
+        d = d.reshape(tower.elem_shape(lvl, (len(idxs), 1 << n_vars)))
+        parts.append(tower.embed(lvl, LEVEL, d) if lvl < LEVEL else d)
+        order.extend(idxs)
+    return in_order(parts, order)
 
 
 class RegularSumcheckProver:
@@ -103,21 +184,25 @@ class RegularSumcheckProver:
         self.n_remaining = claim.n_vars
         self.stack = _stack(multilinears, claim.n_vars)
         self.domain = EvaluationDomain.from_subspace(3, claim.max_individual_degree() + 1)
+        self._groups = _group_comp_specs(compact_compositions(
+            cs.composition.expr for cs in claim.composite_sums))
 
     @property
     def n_vars(self) -> int:
         return self.claim.n_vars
 
-    def compute_round_polys(self) -> list[list[int]]:
-        """Round polynomial coefficients, one list per composite claim."""
-        if not self.claim.composite_sums:
-            return []
+    def _round_sums(self) -> torch.Tensor:
+        """(n_comps, n_points, 4): each composite's sums at the domain's
+        points, on the device."""
         pts = self.domain.points
         ev = _at_points(*_halves(self.stack, self.n_remaining, self.order_high), pts)
-        rows = [ev[i] for i in range(ev.shape[0])]
-        vals = torch.stack([cs.composition.evaluate_batch(LEVEL, rows)
-                            for cs in self.claim.composite_sums])
-        return [self.domain.interpolate(LEVEL, v) for v in _rows(vals, len(pts))]
+        return _point_sums(evaluate_grouped(LEVEL, self._groups, ev), len(pts))
+
+    def compute_mixed_round_poly(self, weights: list[int]) -> list[int]:
+        """sum_j weights[j] * (round polynomial of composite j)."""
+        if not self.claim.composite_sums:
+            return []
+        return _interpolate_mixed(self.domain, self._round_sums(), weights)
 
     def fold(self, challenge: int) -> None:
         self.stack = _fold(self.stack, self.n_remaining, self.order_high, challenge)
@@ -164,29 +249,33 @@ class BivariateSumcheckProver:
     def _init_rows(self, stack: torch.Tensor, idx_a: list, idx_b: list) -> None:
         m = stack.shape[0]
         order = idx_a + idx_b
-        order += [i for i in range(m) if i not in set(order)]
+        in_comp = set(order)
+        order += [i for i in range(m) if i not in in_comp]
         if order != list(range(m)):
             stack = stack[torch.tensor(order, dtype=torch.long, device=stack.device)]
         self.stack = stack
         self.n_comps = len(idx_a)
-        self._row_of = [order.index(i) for i in range(m)]
+        first = {}
+        for pos, i in enumerate(order):
+            first.setdefault(i, pos)
+        self._row_of = [first[i] for i in range(m)]
         self.domain = EvaluationDomain.from_subspace(3, 3)
 
     @property
     def n_vars(self) -> int:
         return self.claim.n_vars
 
-    def _round_values(self) -> list:
-        """Per composite, its values at X = 0, 1, 2."""
+    def _round_sums(self) -> torch.Tensor:
+        """(n_comps, 3, 4): each composite's sums at X = 0, 1, 2."""
         k = self.n_comps
         e0, e1 = _halves(self.stack, self.n_remaining, self.order_high)
         ev = _at_points(e0[:2 * k], e1[:2 * k], self.domain.points)
-        return _rows(tower.mul(LEVEL, ev[:k], ev[k:]), 3)
+        return _point_sums(tower.mul(LEVEL, ev[:k], ev[k:]), 3)
 
-    def compute_round_polys(self) -> list[list[int]]:
+    def compute_mixed_round_poly(self, weights: list[int]) -> list[int]:
         if not self.n_comps:
             return []
-        return [self.domain.interpolate(LEVEL, v) for v in self._round_values()]
+        return _interpolate_mixed(self.domain, self._round_sums(), weights)
 
     def fold(self, challenge: int) -> None:
         self.stack = _fold(self.stack, self.n_remaining, self.order_high, challenge)
@@ -253,14 +342,12 @@ def batch_prove(provers: list, transcript) -> BatchSumcheckOutput:
             next_idx += 1
         combined: list[int] = []
         for pi, p in enumerate(provers[:next_idx]):
-            polys = p.compute_round_polys()
             if getattr(p, "multi_claim", False):
+                # one product composite per claim, each its own coefficient
                 phis = batch_coeffs[coeff_start[pi]:coeff_start[pi] + p.n_claims]
-                assert len(polys) == p.n_claims
             else:
-                phis = [batch_coeffs[coeff_start[pi]]] * len(polys)
-            for coeffs, phi in zip(polys, phis):
-                combined = common.add_coeffs(combined, common.scale_coeffs(coeffs, phi))
+                phis = [batch_coeffs[coeff_start[pi]]] * len(p.claim.composite_sums)
+            combined = common.add_coeffs(combined, p.compute_mixed_round_poly(phis))
         transcript.message().write_scalars(LEVEL, common.truncate(combined))
         challenge = transcript.sample_scalar(LEVEL)
         challenges.append(challenge)

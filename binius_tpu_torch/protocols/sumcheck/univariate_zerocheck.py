@@ -9,8 +9,9 @@ three-stage reduction:
      so only its values on the extension cosets are sent. Each
      multilinear is extended to those cosets by a small-field additive NTT
      (inverse, then forward on each coset), the compositions are evaluated
-     in the small field, weighted by the eq indicator over the unskipped
-     variables and XOR-reduced over the suffixes.
+     in the small field (those of one shape as one stacked expression),
+     weighted by the eq indicator over the unskipped variables and
+     XOR-reduced over the suffixes.
   2. **Eq-indicator sumchecks** over the remaining variables, high to low,
      front-loaded with the univariate round's batching coefficients.
   3. **Univariatizing reduction**: one `skip_rounds`-variable sumcheck of
@@ -42,14 +43,14 @@ from ...math.univariate import lagrange_evals_device, lagrange_evals_np
 from ...ntt.additive_ntt import AdditiveNTT, NTTDomain
 from . import prove as sc_prove
 from .common import LEVEL, CompositeSumClaim, SumcheckClaim
-from .front_loaded import FrontLoadedBatchProver, FrontLoadedBatchVerifier
+from .front_loaded import FrontLoadedBatchProver, FrontLoadedBatchVerifier, powers
 from .zerocheck import ZerocheckClaim, to_sumcheck_claim
 
 DOMAIN_LEVEL = 3  # B8 NTT twiddles
 
-# small-field elements of the multilinears' slices held by one stage-1 chunk
-# (m rows x chunk suffixes x 2^skip); the weighted values of one composition
-# take 4 words per element of the extension cosets
+# words held by one stage-1 chunk per stack row: the m multilinears'
+# extensions and the compositions' weighted values (4 words each) over
+# chunk suffixes x the P coset points
 _CHUNK_ELEMS = 1 << 26
 
 
@@ -102,6 +103,11 @@ def _domain_points(max_domain_size: int) -> tuple:
     return tuple(dom.subspace.get(i) for i in range(max_domain_size))
 
 
+def _compact_compositions(zc: ZerocheckClaim) -> list:
+    """[(expr over the variables it uses, those variables)] per composition."""
+    return sc_prove.compact_compositions(c.expr for c in zc.compositions)
+
+
 def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
                        n_cosets: int, dom_log: int) -> torch.Tensor:
     """(n_comps, P, 4) B128 univariate round evaluations on cosets
@@ -116,24 +122,30 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
         data_level = max([DOMAIN_LEVEL, const_level, *[max(lvl, 0) for lvl in levels]])
     m = len(mls)
     suffix = 1 << (n - k)
-    chunk = 1 << min(n - k, max(0, (_CHUNK_ELEMS // (m << k)).bit_length() - 1))
+    width = (m + 4 * len(zc.compositions)) * max(1, n_cosets - 1) << k
+    chunk = 1 << min(n - k, max(0, (_CHUNK_ELEMS // width).bit_length() - 1))
     if (chunk << k) % 32:
         mls = [tower.resolve_p1(lvl, d) for lvl, d in mls]
+    # the multilinears stacked once per level (bit-packed B1 ones as words)
+    by_level = sc_prove.group_by_level(mls)
+    stacks = [(lvl, torch.stack([mls[i][1] for i in idxs])) for lvl, idxs in by_level.items()]
+    order = [i for idxs in by_level.values() for i in idxs]
 
     def rows(s0: int) -> torch.Tensor:
         """The chunk's slice of every multilinear at data_level:
         (m, chunk << k[, limbs])."""
         out = []
-        for lvl, d in mls:
+        for lvl, st in stacks:
             if lvl == tower.P1:
-                sl = tower.unpack_b1(d[(s0 << k) // 32:((s0 + chunk) << k) // 32])
+                sl = tower.unpack_b1(st[:, (s0 << k) // 32:((s0 + chunk) << k) // 32])
                 lvl = 0
             else:
-                sl = d[s0 << k:(s0 + chunk) << k]
+                sl = st[:, s0 << k:(s0 + chunk) << k]
             out.append(tower.embed(lvl, data_level, sl))
-        return torch.stack(out)
+        return sc_prove.in_order(out, order)
 
     eq = mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, eq_pt, device))
+    groups = sc_prove._group_comp_specs(_compact_compositions(zc))
     ntt = AdditiveNTT(NTTDomain.create(DOMAIN_LEVEL, dom_log))
     coset_bits = dom_log - k
     acc = None
@@ -144,25 +156,11 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
                   .reshape(tower.elem_shape(data_level, (m, chunk, 1 << k)))
                   for c in range(1, n_cosets)]
         ext = torch.cat(cosets, dim=2)                     # (m, chunk, P[, limbs])
-        rows_ext = [ext[i] for i in range(m)]
-        eq_c = eq[s0:s0 + chunk, None, :]
-        part = torch.stack([
-            tower.xor_reduce(tower.scale_subfield(
-                data_level, LEVEL, comp.evaluate_batch(data_level, rows_ext), eq_c), 0)
-            for comp in zc.compositions])
+        vals = sc_prove.evaluate_grouped(data_level, groups, ext)   # (n_comps, chunk, P[, limbs])
+        part = tower.xor_reduce(tower.scale_subfield(
+            data_level, LEVEL, vals, eq[None, s0:s0 + chunk, None, :]), 1)
         acc = part if acc is None else acc ^ part
     return acc
-
-
-def _phi_power_weights(batch_coeffs: list[int], n_comps_per_claim: list[int]) -> list[int]:
-    """Per-composition mixing weights phi_i^(j+1) (`batch_weighted_value`)."""
-    out = []
-    for phi, n_c in zip(batch_coeffs, n_comps_per_claim):
-        w = phi
-        for _ in range(n_c):
-            out.append(w)
-            w = scalar.mul(LEVEL, w, phi)
-    return out
 
 
 def _run_front_loaded_prove(provers, transcript, coeffs=None):
@@ -201,33 +199,15 @@ def _reduction_composites(n_total: int, sums: list[int]):
         for i, s in enumerate(sums))
 
 
-def _group_by_level(mls: list) -> dict:
-    groups: dict = {}
-    for i, (lvl, _) in enumerate(mls):
-        groups.setdefault(lvl, []).append(i)
-    return groups
-
-
-def _in_order(parts: list, order: list) -> torch.Tensor:
-    """Concatenated level groups back in the multilinears' order."""
-    full = torch.cat(parts) if len(parts) > 1 else parts[0]
-    if order != list(range(len(order))):
-        inv = [0] * len(order)
-        for pos, i in enumerate(order):
-            inv[i] = pos
-        full = full[torch.tensor(inv, dtype=torch.long, device=full.device)]
-    return full
-
-
 def _fold_skipped(mls: list, n: int, k: int, lagr_cube: torch.Tensor) -> list:
     """Bind the low k variables of each multilinear with the Lagrange
     coefficients: [(LEVEL, 2^(n-k) elements)]."""
     parts, order = [], []
-    for lvl, idxs in _group_by_level(mls).items():
+    for lvl, idxs in sc_prove.group_by_level(mls).items():
         stack = torch.stack([mls[i][1] for i in idxs])
         parts.append(mle.batched_evaluate_partial_low(lvl, stack, n, lagr_cube, k)[1])
         order.extend(idxs)
-    full = _in_order(parts, order)
+    full = sc_prove.in_order(parts, order)
     return [(LEVEL, full[i]) for i in range(len(mls))]
 
 
@@ -238,7 +218,7 @@ def _project_skipped_stacked(mls: list, n: int, k: int, point: list[int]) -> tor
     parts, order = [], []
     eq = (mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, point, device))
           if n > k else None)
-    for lvl, idxs in _group_by_level(mls).items():
+    for lvl, idxs in sc_prove.group_by_level(mls).items():
         stack = torch.stack([mls[i][1] for i in idxs])
         if n == k:
             lvl, stack = tower.resolve_p1(lvl, stack)
@@ -246,7 +226,7 @@ def _project_skipped_stacked(mls: list, n: int, k: int, point: list[int]) -> tor
         else:
             parts.append(mle.batched_evaluate_partial_high(lvl, stack, n, eq, k)[1])
         order.extend(idxs)
-    return _in_order(parts, order)
+    return sc_prove.in_order(parts, order)
 
 
 def _extrapolate_round_evals(ev: torch.Tensor, d_i: int, max_d: int, k: int,
@@ -313,7 +293,9 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
                 ev = _extrapolate_round_evals(ev, d_i, max_d, k, dom_log)
             r_claims.append(ev)
         r_all = torch.cat(r_claims)                                # (total_comps, P, 4)
-        weights = _phi_power_weights(batch_coeffs, [len(zc.compositions) for zc in zc_claims])
+        # composition j of claim i weighs phi_i^(j+1)
+        weights = [w for phi, zc in zip(batch_coeffs, zc_claims)
+                   for w in powers(phi, len(zc.compositions))]
         msg = transcript.message()   # always obtained, even when nothing is written
         if max_d >= 2:
             w_dev = tower.from_ints(LEVEL, weights, device)

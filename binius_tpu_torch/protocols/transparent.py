@@ -2,10 +2,11 @@
 
 The port of part of `binius_tpu/protocols/transparent.py`: each polynomial
 evaluates on host ints at a point (the verifier) and materializes its
-multilinear on a device (the prover's witness). Ported: `Constant` and
-`EqIndTransparent`; the JAX module's other kinds (step-down and step-up
-masks, values, structured arithmetic, powers, select-row, tower basis,
-disjoint product) wait for the front end's column kinds that make them.
+multilinear on a device (the prover's witness). Ported: `Constant`,
+`EqIndTransparent` and `MLEFromValues` (the pattern of a fixed column);
+the JAX module's other kinds (step-down and step-up masks, structured
+arithmetic, powers, select-row, tower basis, disjoint product) wait for
+the front end's column kinds that make them.
 """
 
 from __future__ import annotations
@@ -51,3 +52,25 @@ class EqIndTransparent:
     def mle(self, device=None):
         return LEVEL, mle_mod.eq_ind_partial_eval(
             LEVEL, tower.from_ints(LEVEL, list(self.point), device))
+
+
+@dataclasses.dataclass(frozen=True)
+class MLEFromValues:
+    """The multilinear extension of a short public vector of values."""
+
+    values: tuple  # 2^n_vars ints at `level`
+    level: int
+
+    @property
+    def n_vars(self) -> int:
+        return (len(self.values) - 1).bit_length()
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        cur = [int(v) for v in self.values]
+        for r in q:
+            cur = [cur[2 * i] ^ scalar.mul(LEVEL, cur[2 * i] ^ cur[2 * i + 1], r)
+                   for i in range(len(cur) // 2)]
+        return cur[0]
+
+    def mle(self, device=None):
+        return self.level, tower.from_ints(self.level, list(self.values), device)

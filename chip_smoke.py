@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive binius_tpu_torch's u32_add proof (and its commit and opening on
-their own) on one NVIDIA H100 and check them.
+"""Drive binius_tpu_torch's proofs of the reference grid's circuits
+(u32_add, b32_mul, Keccak-f, Grøstl-P; and the u32_add commit and opening
+on their own) on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -45,25 +46,33 @@ their own) on one NVIDIA H100 and check them.
    take the packed stage loop on the card, no K2-K4 launch, and equal it
    on the CPU; the smallest batch the bitsliced gate admits (2^15
    elements) takes K2/K3/K4 and equals the stage loop on the card.
-7. The proof (the main path): the u32_add constraint system of
-   2^log_rows rows, its inputs drawn from --seed
-   (`m3.gadgets.arith.u32_add_rows`), proven with
-   `constraint_system.prove.prove` on the card: the first run's time, then
-   one run with every launch counter set to 0 just before and read just
-   after (each of K1-K6 launched, no host Grøstl compression), its length,
-   sha256 and peak device memory; the port's `verify` accepts it and
-   rejects it with one byte flipped; the warm prove time (median of 3) with
-   its phase split (commit, exp, zerocheck, evalcheck, ring switch, PIOP)
-   and the verify time, the bytes equal across the runs.
+7. The proofs (the main path), each through `constraint_system.prove.prove`
+   on the card with its inputs drawn from --seed
+   (`binius_tpu_torch.circuits.instance`): the u32_add constraint system
+   of 2^log_rows rows, then the reference grid's other circuits at their
+   grid sizes: b32_mul (2^20 B32 products), keccak (2^13 Keccak-f[1600]
+   permutations) and groestl (2^14 Grøstl P permutations). For each: the
+   system's size and the commit's NTT plan; the first run's time with its
+   phase split; one run with every launch counter set to 0 just before
+   and read just after (K1, K2, K3, K5 and K6 each launched, K4 once per
+   run of the plan's cross stages; no host Grøstl compression), its
+   length, sha256 and peak device memory; the port's `verify` accepts it
+   and rejects it with one byte flipped; the warm prove time (median of 3)
+   with its phase split (commit, exp, zerocheck, evalcheck, ring switch,
+   PIOP) and the verify time, the bytes equal across the runs.
 8. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
    plain versions (on the CPU) against the kernel path, byte for byte; the
    golden 8-row u32_add proof (`tests/test_golden_transcript.py`'s
    instance) on the card against its pinned length and sha256; the 2^16-row
    proof against the JAX package's digest, and the same proof through the
-   plain versions on the CPU against the kernel path's bytes.
-9. One JSON line for the kernels (launches: the proof's), then, as the
-   last line, {"ok": true, "device": {...}}.
+   plain versions on the CPU against the kernel path's bytes; b32_mul at
+   2^10, keccak at 2^1 and groestl at 2^3 (seed 0) on the card against the
+   JAX package's length and sha256 (`GOLDEN_CIRCUITS`), and each through
+   the plain versions on the CPU against the card's bytes.
+9. One JSON line for the kernels (launches: the four proofs' counted runs
+   together, and per proof), then, as the last line,
+   {"ok": true, "device": {...}}.
 
 Every failure raises: no phase is caught. Without a CUDA device the script
 exits non-zero before printing any result.
@@ -102,6 +111,16 @@ GOLDEN_PROOF_16 = (202416, "645a741da769b72893f0a66f657e3f7c11e5f91e7ce4200e6f99
 # The golden 8-row instance of tests/test_golden_transcript.py (rows drawn
 # by random.Random(42)), pinned in tests/fixtures/proof_self_golden.json.
 GOLDEN_PROOF_8 = (7328, "ff771c0972ec4044dac2aeb7f02b0f602d872968a4aaf9d5b3770608a7c2e079")
+# The JAX package's proofs of the other circuits of the reference grid at
+# small sizes, seed 0 (`binius_tpu_torch.circuits.instance(circuit, size,
+# 0)`; log_inv_rate 1): circuit -> (size, proof bytes, sha256), computed on
+# the CPU with binius_tpu (jax 0.9.0) by
+#   python scripts/port_golden_proof.py --circuit <circuit>
+GOLDEN_CIRCUITS = {
+    "b32_mul": (10, 35792, "7f2b964a9d4a8326edf4fe5d1900b2a243b019269e9170c6baa5135e0e290847"),
+    "keccak": (1, 229536, "c6bd0d572e02e3d17609fe1b96f60a57656c27380acd805aef036e46e6da7185"),
+    "groestl": (3, 122928, "339e2b793472a0d5a544aa4761267e9bba3b6fc431f77e0e359c5cfc28bbf40a"),
+}
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
 # 700 W). Logic: the CUDA C++ Programming Guide's throughput of 32-bit
@@ -290,13 +309,6 @@ def verify_opening(inst: dict, proof: bytes) -> None:
     red = ring_switch.verify(inst["claims"], vt, inst["device"])
     piop.verify(inst["params"], inst["meta"], com, red.transparent_mles, red.sumcheck_claims, vt)
     vt.finalize()
-
-
-def proof_system(log_rows: int, seed: int, device):
-    """The u32_add system of 2^log_rows rows drawn from `seed`, its witness
-    on `device`."""
-    from binius_tpu_torch.m3.gadgets import arith
-    return arith.u32_add_system(log_rows, *arith.u32_add_rows(log_rows, seed), device)
 
 
 def golden_system(device):
@@ -701,14 +713,28 @@ def main() -> int:
                              f"{counts['k6_groestl_pairs']} for {k6_commit}")
 
     # (a) the same commit composed from the plain versions, on the card
-    p = bitslice.to_bitsliced(7, torch.cat([msg_main] * (1 << params.log_inv_rate)))
-    for si, st in enumerate(plan.stages):
-        p = bn._stage_plain(plan, st, p, tw[si])
-    cw_plain = bitslice.from_bitsliced(7, p)
+    def plain_codeword(params_, message):
+        """The Reed-Solomon codeword of a commit's message through the plain
+        versions of K2, K4 and K3 (every stage of the commit's NTT plan)."""
+        plan_, tw_np_ = bn._make_plan(params_.ntt_domain(), fri.LEVEL,
+                                      (params_.log_batch_size, params_.log_code_len, 0),
+                                      0, 0, params_.log_inv_rate, False)
+        tw_ = bn._dev_tw(plan_, tw_np_, dev)
+        p_ = bitslice.to_bitsliced(7, torch.cat([message] * (1 << params_.log_inv_rate)))
+        for si, st in enumerate(plan_.stages):
+            p_ = bn._stage_plain(plan_, st, p_, tw_[si])
+        return bitslice.from_bitsliced(7, p_)
+
+    def plain_layers(cw_, log_coset_, blob_len_):
+        """Every layer of a codeword's Merkle tree, leaves first, through the
+        plain versions of K5 and K6: the layout of `tree_levels`' buffer."""
+        dig_ = groestl_cuda.leaf_hash_plain(cw_, log_coset_, blob_len_)
+        return torch.cat([dig_, groestl_cuda.tail_plain(dig_)])
+
+    cw_plain = plain_codeword(params, msg_main)
     if not torch.equal(cw_plain, cw_main):
         raise AssertionError("slice: kernel codeword != plain codeword")
-    dig = groestl_cuda.leaf_hash_plain(cw_plain, log_coset, blob_len)
-    layers_plain = torch.cat([dig, groestl_cuda.tail_plain(dig)])
+    layers_plain = plain_layers(cw_plain, log_coset, blob_len)
     if not torch.equal(torch.cat(tree.layers), layers_plain):
         raise AssertionError("slice: kernel tree layers != plain tree layers")
     root_plain = layers_plain[-1].cpu().numpy().tobytes()
@@ -892,69 +918,157 @@ def main() -> int:
         f"= the stage loop on the card")
     phases.done("C1 small transforms")
 
-    # 7. the proof, the main path: the u32_add constraint system through
-    # `constraint_system.prove` on the card
+    # 7. the proofs, the main path: the u32_add constraint system, then the
+    # reference grid's other circuits, each through `constraint_system.prove`
+    # on the card at its grid size
+    from binius_tpu_torch import circuits
     from binius_tpu_torch.constraint_system import prove as csp
-    core, witness = proof_system(args.log_rows, args.seed, dev)
-    torch.cuda.synchronize()
-    n_vars = core.constraint_sets[0].n_vars
-    log(f"proof: u32_add, 2^{args.log_rows} rows (2^{n_vars} B1 values per column), "
-        f"{len(core.oracles.committed_ids())} committed columns, zerocheck skip "
-        f"{csp._zerocheck_skip(core)}")
-    t0 = time.perf_counter()
-    csp.prove(core, witness)
-    torch.cuda.synchronize()
-    log("proof, first run: %.1f ms (%s)" % ((time.perf_counter() - t0) * 1e3, ", ".join(
-        f"{k} {v * 1e3:.1f}" for k, v in csp.last_phase_times.items())))
-    host_compressions[0] = 0
-    groestl.compress_pairs_t = counted_compress
-    torch.cuda.reset_peak_memory_stats()
-    cuda_lib.reset_launches()
-    proof = csp.prove(core, witness)
-    torch.cuda.synchronize()
-    counts = dict(cuda_lib.launches)
-    groestl.compress_pairs_t = compress_pairs_t
-    log(f"launches on the proof: {counts}; host Grøstl compressions {host_compressions[0]}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    if host_compressions[0]:
-        raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-    log(f"proof: {len(proof)} bytes, sha256 {hashlib.sha256(proof).hexdigest()}, peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    t0 = time.perf_counter()
-    csp.verify(core, proof)
-    log(f"proof verifies ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
-    bad = bytearray(proof)
-    bad[len(bad) // 3] ^= 1
-    try:
-        csp.verify(core, bytes(bad))
-    except (ValueError, EOFError) as e:
-        log(f"proof with byte {len(bad) // 3} flipped: rejected ({e})")
-    else:
-        raise AssertionError("a proof with a flipped byte was accepted")
-    names = ("total", "commit", "exp", "zerocheck", "evalcheck", "ring_switch", "piop", "verify")
-    splits = {k: [] for k in names}
-    for _ in range(3):
-        torch.cuda.synchronize()
+
+    def commit_plan(core):
+        """(K4 launches the commit's NTT makes, the plan's description)."""
+        layout = csp.CommitLayout.from_system(core)
+        p_ = csp.make_fri_params(layout.commit_meta, LOG_INV_RATE)
+        n = 1 << (p_.log_batch_size + p_.log_code_len)
+        if not bn.supported(5, fri.LEVEL, n):
+            return 0, f"2^{n.bit_length() - 1} elements, the stage loop"
+        plan_, _ = bn._make_plan(p_.ntt_domain(), fri.LEVEL, (p_.log_batch_size,
+                                                             p_.log_code_len, 0),
+                                 0, 0, p_.log_inv_rate, False)
+        cross_ = len(plan_.stages) - plan_.n_local
+        k4 = len(bn._cross_runs(plan_)) if cross_ else 0
+        return k4, (f"2^{n.bit_length() - 1} elements, {len(plan_.stages)} stages: {cross_} "
+                    f"cross in {k4} runs + {plan_.n_local} fused (tile {plan_.tile})")
+
+    def drive_proof(circuit, size):
+        """Prove `circuit` at 2^size on the card: the first run's time and
+        split, with the commit's codeword and every Merkle tree it builds
+        held against the plain versions of K2-K6 on the same inputs; one
+        run counted (every launch counter set to 0 just before, read just
+        after; no host Grøstl compression); its bytes, sha256 and peak
+        memory; verify accepting it and rejecting a flipped byte; the warm
+        time (median of 3) with its split, the verify time, the bytes equal
+        across runs. Returns the counted run's launches."""
         t0 = time.perf_counter()
-        again = csp.prove(core, witness)
+        core, witness = circuits.instance(circuit, size, args.seed, dev)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        if again != proof:
-            raise AssertionError("proof: bytes differ between runs")
-        for k in names[1:-1]:
-            splits[k].append(csp.last_phase_times[k] * 1e3)
-        splits["total"].append((t1 - t0) * 1e3)
-        csp.verify(core, again)
-        splits["verify"].append((time.perf_counter() - t1) * 1e3)
-    split = {k: statistics.median(v) for k, v in splits.items()}
-    log("proof 2^%d rows, warm, median of 3 (ms; verify apart): %s" % (
-        args.log_rows, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
-    del core, witness
-    phases.done("proof")
+        t_inst = time.perf_counter() - t0
+        k4_want, plan_txt = commit_plan(core)
+        log(f"proof: {circuit} 2^{size} (seed {args.seed}): {len(core.oracles)} oracles, "
+            f"{len(core.oracles.committed_ids())} committed, "
+            f"{sum(len(c.zero_constraints) for c in core.constraint_sets)} zero constraints, "
+            f"zerocheck skip {csp._zerocheck_skip(core)}; instance and witness on the card "
+            f"{t_inst * 1e3:.1f} ms; commit NTT: {plan_txt}")
+        # the first run records the commit's message and codeword and every
+        # tree built (the commit's and the FRI oracles'), for the plain check
+        commits, built = [], []
+        fri_commit = fri.fri_commit
+
+        def recording_commit(params_, message, device=None):
+            cw_, tree_ = fri_commit(params_, message, device)
+            commits.append((params_, message, cw_))
+            return cw_, tree_
+
+        def recording_tree(cw_, log_coset_, blob_len_):
+            buf_ = tree_levels(cw_, log_coset_, blob_len_)
+            built.append((cw_, log_coset_, blob_len_, buf_))
+            return buf_
+
+        fri.fri_commit, groestl_cuda.tree_levels = recording_commit, recording_tree
+        t0 = time.perf_counter()
+        csp.prove(core, witness)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        fri.fri_commit, groestl_cuda.tree_levels = fri_commit, tree_levels
+        log("proof %s, first run: %.1f ms (%s)" % (circuit, t_first * 1e3,
+                                                    ", ".join(f"{k} {v * 1e3:.1f}" for k, v
+                                                              in csp.last_phase_times.items())))
+        # the kernels at this proof's own shapes against their plain versions
+        # on the card: the commit's codeword (K2, K4 and K3 at its plan) and
+        # every tree's layers (K5 and K6 at its leaf count)
+        if len(commits) != 1:
+            raise AssertionError(f"{circuit}: {len(commits)} commits on one proof")
+        params_c, message_c, cw_c = commits[0]
+        if not torch.equal(plain_codeword(params_c, message_c), cw_c):
+            raise AssertionError(f"{circuit}: kernel codeword != plain codeword")
+        for cw_, log_coset_, blob_len_, buf_ in built:
+            if not torch.equal(plain_layers(cw_, log_coset_, blob_len_), buf_):
+                raise AssertionError(f"{circuit}: tree of {cw_.shape[0] >> log_coset_} leaves: "
+                                     f"kernel layers != plain layers")
+        leaves = [cw_.shape[0] >> lc_ for cw_, lc_, _, _ in built]
+        k6_want = sum(len(groestl_cuda.tree_launches(n)) for n in leaves)
+        log(f"proof {circuit}: codeword of {cw_c.shape[0]} elements and the layers of its "
+            f"{len(built)} trees (leaves {leaves}) = the plain versions on the card")
+        commits.clear()
+        built.clear()
+        del params_c, message_c, cw_c
+        host_compressions[0] = 0
+        groestl.compress_pairs_t = counted_compress
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        proof = csp.prove(core, witness)
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.launches)
+        groestl.compress_pairs_t = compress_pairs_t
+        log(f"launches on the {circuit} proof: {counts}; host Grøstl compressions "
+            f"{host_compressions[0]}")
+        need = [k for k in cuda_lib.KERNELS if k != "k4_ntt_cross"]
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{circuit}: kernels not launched on the proof: {missing}")
+        if counts["k4_ntt_cross"] != k4_want:
+            raise AssertionError(f"{circuit}: K4 launched {counts['k4_ntt_cross']} times, the "
+                                 f"commit plan has {k4_want} cross runs")
+        if counts["k5_groestl_leaf"] != len(leaves) or counts["k6_groestl_pairs"] != k6_want:
+            raise AssertionError(f"{circuit}: K5 launched {counts['k5_groestl_leaf']} times for "
+                                 f"{len(leaves)} trees, K6 {counts['k6_groestl_pairs']} for "
+                                 f"{k6_want}")
+        if host_compressions[0]:
+            raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
+        log(f"proof {circuit}: {len(proof)} bytes, sha256 {hashlib.sha256(proof).hexdigest()}, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        t0 = time.perf_counter()
+        csp.verify(core, proof)
+        log(f"proof {circuit} verifies ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+        bad = bytearray(proof)
+        bad[len(bad) // 3] ^= 1
+        try:
+            csp.verify(core, bytes(bad))
+        except (ValueError, EOFError) as e:
+            log(f"proof {circuit} with byte {len(bad) // 3} flipped: rejected ({e})")
+        else:
+            raise AssertionError(f"{circuit}: a proof with a flipped byte was accepted")
+        names = ("total", "commit", "exp", "zerocheck", "evalcheck", "ring_switch", "piop",
+                 "verify")
+        splits = {k: [] for k in names}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = csp.prove(core, witness)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if again != proof:
+                raise AssertionError(f"{circuit}: proof bytes differ between runs")
+            for k in names[1:-1]:
+                splits[k].append(csp.last_phase_times[k] * 1e3)
+            splits["total"].append((t1 - t0) * 1e3)
+            csp.verify(core, again)
+            splits["verify"].append((time.perf_counter() - t1) * 1e3)
+        split = {k: statistics.median(v) for k, v in splits.items()}
+        log("proof %s 2^%d, warm, median of 3 (ms; verify apart): %s" % (
+            circuit, size, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+        return counts
+
+    proof_launches = {"u32_add": drive_proof("u32_add", args.log_rows)}
+    if any(v == 0 for v in proof_launches["u32_add"].values()):
+        raise AssertionError(f"kernels not launched on the u32_add proof: "
+                             f"{proof_launches['u32_add']}")
+    phases.done("proof u32_add")
+    for circuit in ("b32_mul", "keccak", "groestl"):
+        proof_launches[circuit] = drive_proof(circuit, circuits.GRID_SIZE[circuit])
+        phases.done(f"proof {circuit}")
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in proof_launches.values())
+        r["launches_by_proof"] = {c: v[r["name"]] for c, v in proof_launches.items()}
 
     # 8. bytes: the JAX package's digest at 2^16 rows, and the same opening
     # composed from the plain versions on the CPU (at the golden's depth it
@@ -977,17 +1091,30 @@ def main() -> int:
     p8 = csp.prove(core8, wit8)
     check_digest("golden 8-row proof on the card", p8, GOLDEN_PROOF_8)
     csp.verify(core8, p8)
-    core16, wit16 = proof_system(GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
+    core16, wit16 = circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
     p16 = csp.prove(core16, wit16)
     check_digest(f"proof 2^{GOLDEN_LOG_ROWS} rows, seed {GOLDEN_SEED} on the card", p16,
                  GOLDEN_PROOF_16)
     t0 = time.perf_counter()
-    p16_cpu = csp.prove(*proof_system(GOLDEN_LOG_ROWS, GOLDEN_SEED, cpu), device=cpu)
+    p16_cpu = csp.prove(*circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, cpu),
+                        device=cpu)
     if p16_cpu != p16:
         raise AssertionError("plain-path proof differs from the kernel path")
     log(f"proof 2^{GOLDEN_LOG_ROWS} rows through the plain versions on the CPU "
         f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")
     phases.done("golden and plain proofs")
+    # the other circuits at small sizes: the JAX package's digests on the
+    # card, and the same proofs through the plain versions on the CPU
+    for circuit, (size, n_bytes, sha) in GOLDEN_CIRCUITS.items():
+        pc = csp.prove(*circuits.instance(circuit, size, 0, dev))
+        check_digest(f"{circuit} proof 2^{size}, seed 0 on the card", pc, (n_bytes, sha))
+        t0 = time.perf_counter()
+        core_c, wit_c = circuits.instance(circuit, size, 0, cpu)
+        if csp.prove(core_c, wit_c, device=cpu) != pc:
+            raise AssertionError(f"{circuit}: plain-path proof differs from the kernel path")
+        log(f"{circuit} proof 2^{size} through the plain versions on the CPU "
+            f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")
+    phases.done("golden and plain circuit proofs")
 
     # 9. results
     print(json.dumps({"kernels": rows}))

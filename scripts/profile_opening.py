@@ -1,8 +1,8 @@
 """Profile one warm opening of the u32_add commitment, or one warm proof of
-the u32_add constraint system, on the card.
+a circuit, on the card.
 
     python3 scripts/profile_opening.py [--log-rows 22] [--seed 0] [--k1-designs]
-    python3 scripts/profile_opening.py --proof [--log-rows 22] [--seed 0]
+    python3 scripts/profile_opening.py --proof [--circuit u32_add] [--log-rows N] [--seed 0]
     python3 scripts/profile_opening.py --against parent
 
 
@@ -27,15 +27,20 @@ which .gitignore lists); this script is copied into it and run there and
 here, each in a process of its own, in the order DIR, here, here, DIR.
 
 --proof profiles the whole proof instead (`constraint_system.prove.prove`
-on the u32_add system of 2^log-rows rows whose inputs
-`m3.gadgets.arith.u32_add_rows` draws from --seed, as `chip_smoke.py`
-proves it), and adds the device time by op family (the six kernels, torch
-gathers, copies and concatenations, reductions, float64 GEMMs, other
-elementwise kernels, fills) and, per prove phase (the prover's
-"prove.<phase>" profiler ranges, each ending in a synchronize), its wall
-time, the device time of the kernels that start inside it and its idle
-share; the zerocheck's three stages ("zerocheck.stage<i>" ranges, each
-ending in a copy to the host) the same way.
+on `circuits.instance(circuit, log-rows, seed)`, as `chip_smoke.py` proves
+it: u32_add, b32_mul, keccak or groestl, 2^log-rows rows, products or
+permutations, by default the circuit's grid size). It first prints the
+warm proof's wall time and phases (median of 3) and the verify time, the
+latter also with the evalcheck's shift indicators checked one claim at a
+time where the tree stacks them; the profile then adds the device
+time by op family (the six kernels, torch gathers, copies and
+concatenations, reductions, float64 GEMMs, other elementwise kernels,
+fills) and, per prove phase (the prover's "prove.<phase>" profiler
+ranges, each ending in a synchronize), its wall time, the device time of
+the kernels that start inside it and its idle share; the zerocheck's
+three stages ("zerocheck.stage<i>" ranges, each ending in a copy to the
+host) the same way; then one more warm proof under cProfile for the host's
+share: the functions with the most own time and the transcript's Grøstl.
 
 --k1-designs profiles two more openings, one with every B128 product on
 K1's one-tile-per-block kernel and one with every B128 product on its
@@ -57,15 +62,76 @@ import time
 import torch
 
 
+def warm_and_verify(csp, core, witness) -> None:
+    """The proof's warm wall time and phases (median of 3, after one
+    warm-up), then its verify time (median of 3). Where the evalcheck
+    verifier checks a wave's shift indicators as one stacked carry DP
+    (`shift_ind.evaluate_scalar_batch`), verify is timed again with each
+    claim checked alone by the scalar DP (`shift_ind.evaluate_scalar`), with
+    the seconds spent in those checks."""
+    import statistics
+
+    from binius_tpu_torch.protocols import shift_ind
+
+    proof = csp.prove(core, witness)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = csp.prove(core, witness)
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3, dict(csp.last_phase_times)))
+        if again != proof:
+            raise AssertionError("proof bytes differ between runs")
+    wall = statistics.median(r[0] for r in runs)
+    print("warm proof, median of 3: %.3f ms (phases ms: %s)" % (wall, ", ".join(
+        f"{k} {statistics.median(r[1][k] for r in runs) * 1e3:.3f}" for k in runs[0][1])),
+        flush=True)
+    batch = getattr(shift_ind, "evaluate_scalar_batch", None)
+    ways = {"stacked": batch} if batch else {"as the tree has it": None}
+    if batch:
+        ways["one claim at a time"] = lambda vs, bs, offs, xs, ys, device=None: [
+            shift_ind.evaluate_scalar(*c) for c in zip(vs, bs, offs, xs, ys)]
+    for label, fn in ways.items():
+        spent = [0.0]
+        if fn:
+            def timed(*a, fn=fn, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                spent[0] += time.perf_counter() - t0
+                return out
+            shift_ind.evaluate_scalar_batch = timed
+        times, checks = [], []
+        for _ in range(3):
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            csp.verify(core, proof)
+            times.append((time.perf_counter() - t0) * 1e3)
+            checks.append(spent[0] * 1e3)
+        print(f"verify, shift indicators {label}, median of 3: {statistics.median(times):.3f} "
+              f"ms" + (f" (shift checks {statistics.median(checks):.3f} ms)" if fn else ""),
+              flush=True)
+    if batch:
+        shift_ind.evaluate_scalar_batch = batch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--log-rows", type=int, default=22)
+    ap.add_argument("--log-rows", type=int, default=None,
+                    help="log2 of the rows, products or permutations (default: 22, or "
+                         "the circuit's grid size with --proof)")
+    ap.add_argument("--circuit", default="u32_add",
+                    choices=("u32_add", "b32_mul", "keccak", "groestl"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")
     ap.add_argument("--proof", action="store_true")
     ap.add_argument("--against", metavar="DIR")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    if args.log_rows is None:
+        from binius_tpu_torch.circuits import GRID_SIZE
+        args.log_rows = GRID_SIZE[args.circuit] if args.proof else 22
     if args.against:
         here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         other = os.path.abspath(args.against)
@@ -76,13 +142,13 @@ def main() -> int:
             print(f"==== {label}: {root}", flush=True)
             rc |= subprocess.run([sys.executable, os.path.join(root, "scripts", "profile_opening.py"),
                                   "--log-rows", str(args.log_rows), "--seed", str(args.seed),
-                                  "--top", str(args.top)] + ["--proof"] * args.proof,
+                                  "--top", str(args.top)] + ["--proof"] * args.proof
+                                 + ["--circuit", args.circuit] * (args.circuit != "u32_add"),
                                  cwd=root).returncode
         return rc
     if not torch.cuda.is_available():
         print("profile_opening: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
     from binius_tpu_torch import cuda_lib
     from binius_tpu_torch.fields import bitslice_cuda
@@ -94,14 +160,23 @@ def main() -> int:
     dev = torch.device("cuda")
     if args.proof:
         from binius_tpu_torch.constraint_system import prove as csp
-        from binius_tpu_torch.m3.gadgets import arith
 
-        what = "proof"
-        core, witness = arith.u32_add_system(
-            args.log_rows, *arith.u32_add_rows(args.log_rows, args.seed), dev)
+        what = f"{args.circuit} proof"
+        if args.circuit == "u32_add":   # as circuits.instance builds it (older trees lack it)
+            from binius_tpu_torch.m3.gadgets import arith
+            core, witness = arith.u32_add_system(
+                args.log_rows, *arith.u32_add_rows(args.log_rows, args.seed), dev)
+        else:
+            from binius_tpu_torch import circuits
+            core, witness = circuits.instance(args.circuit, args.log_rows, args.seed, dev)
 
         def run():
-            return csp.prove(core, witness)
+            proof = csp.prove(core, witness)
+            print("phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                            csp.last_phase_times.items()), flush=True)
+            return proof
+
+        warm_and_verify(csp, core, witness)
     else:
         what = "opening"
         inst = chip_smoke.instance(args.log_rows, args.seed, dev)
@@ -183,6 +258,28 @@ def main() -> int:
             us = sum(ev.time_range.elapsed_us() for _, ev in launches)
             print(f"{k} device ms over its launches: {us / 1e3:.4f}")
 
+    def host_functions(fn):
+        """One more warm run under cProfile: the host seconds of the
+        functions with the most own time, and of the transcript's Grøstl
+        (`hash.groestl._compress_cols`, with what it calls)."""
+        import cProfile
+        import pstats
+        pr = cProfile.Profile()
+        t0 = time.perf_counter()
+        pr.runcall(fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = pstats.Stats(pr)
+        rows_ = sorted(((v[2], v[3], v[1], f) for f, v in st.stats.items()), reverse=True)
+        print(f"host under cProfile: wall {wall * 1e3:.1f} ms; functions by own time "
+              f"(own s, with callees s, calls):")
+        for own, cum, calls, (file, line, name) in rows_[:args.top]:
+            print(f"  {own:8.4f} {cum:8.4f} {calls:8d}  {os.path.basename(file)}:{line}({name})")
+        grs = [(v[3], v[1]) for (file, _, name), v in st.stats.items()
+               if name == "_compress_cols" and file.endswith("groestl.py")]
+        print(f"transcript Grøstl (_compress_cols): {sum(c for c, _ in grs):.4f} s in "
+              f"{sum(n for _, n in grs)} compressions")
+
     def families(kernels):
         """Device ms by op family, from the device kernels' names."""
         fams = [("K1-K6", "|".join(kernel_names.values())),
@@ -226,7 +323,7 @@ def main() -> int:
                and not ev.key.startswith(("prove.", "zerocheck."))]
     kernels.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
-    print(f"{what} 2^{args.log_rows} rows under the profiler: wall {wall_ms:.3f} ms, device "
+    print(f"{what} 2^{args.log_rows} under the profiler: wall {wall_ms:.3f} ms, device "
           f"kernels {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     print(f"launches (port counters): {launches}")
     print(f"{'device ms':>10} {'calls':>6} {'mean us':>9}  kernel")
@@ -236,6 +333,7 @@ def main() -> int:
     if args.proof:
         families(kernels)
         per_phase(prof)
+        host_functions(run)
     # the torch ops whose kernels take the most device time, by input shape
     ops = [(ev.device_time_total / 1e3, ev.count, ev.key, ev.input_shapes)
            for ev in prof.key_averages(group_by_input_shape=True)

@@ -8,13 +8,17 @@ package's `batch_verify` reads it back to the port's reduced claims. Two
 claims of unequal degrees and sizes (a lower-degree claim extended to the
 batch's domain, a smaller claim high-padded), and a claim over B128
 multilinears, go the same way through both verifiers. The skip count, the Lagrange evaluations and `OddInterpolate`
-equal the JAX package's. Exact comparisons."""
+equal the JAX package's. A claim of 8 compositions of two shapes gives the
+same round evaluations with its compositions stacked by shape as one at a
+time, in stage 1 and in the stage-2 prover, and verifies in both
+packages. Exact comparisons."""
 
 import hashlib
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu.math import arith as jarith
 from binius_tpu.math import univariate as juni
@@ -28,6 +32,7 @@ from binius_tpu_torch.fields import tower
 from binius_tpu_torch.m3.gadgets import arith as gadgets
 from binius_tpu_torch.math import arith, univariate
 from binius_tpu_torch.ntt import additive_ntt, odd_interpolate
+from binius_tpu_torch.protocols.sumcheck import common
 from binius_tpu_torch.protocols.sumcheck import univariate_zerocheck as uzc
 from binius_tpu_torch.protocols.sumcheck import zerocheck
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
@@ -159,3 +164,98 @@ def test_b128_claim_matches_reference():
     pt = ProverTranscript()
     out = uzc.batch_prove([claim], [[(7, A), (7, B), (7, tower.mul(7, A, B))]], pt, 3)
     _check_verifiers([claim], pt.finalize(), 3, out)
+
+
+def _two_shape_claim(n: int, level: int, seed: int):
+    """A claim of 8 compositions of two shapes (5 of V(a)*V(b) + V(c), 3 of
+    V(a) + (1 + V(b))*V(c) + V(d), interleaved, their variables in several
+    orders) over 6 random multilinears of `level` with n variables."""
+    rng = np.random.default_rng(seed)
+    V = arith.ArithExpr.var
+    spec = [(0, 1, 2), (3, 4, 5), (0, 1, 2, 3), (1, 0, 3), (4, 5, 0, 1), (5, 2, 4), (2, 1, 0),
+            (2, 3, 5, 4)]
+    comps = []
+    for vs in spec:
+        if len(vs) == 4:
+            a, b, c, d = vs
+            e = V(a) + (arith.ArithExpr.const(1) + V(b)) * V(c) + V(d)
+        else:
+            a, b, c = vs
+            e = V(a) * V(b) + V(c)
+        comps.append(arith.CompositionPoly(e, 6))
+    mls = [(level, tower.from_ints(level, [int(v) for v in rng.integers(
+        0, 1 << min(1 << level, 62), 1 << n, dtype=np.uint64)], "cpu")) for _ in range(6)]
+    return zerocheck.ZerocheckClaim(n, 6, tuple(comps)), mls
+
+
+@pytest.mark.parametrize("n,level", [(8, 0), (7, 3), (8, 5)])
+def test_stacked_stage1_equals_one_at_a_time(n, level):
+    """Stage 1's round evaluations of a claim's compositions, evaluated as
+    one expression per shape over a stacked gather, equal each composition
+    evaluated on its own."""
+    from binius_tpu_torch.protocols.sumcheck import prove as sc_prove
+
+    zc, mls = _two_shape_claim(n, level, n + level)
+    groups = sc_prove._group_comp_specs(uzc._compact_compositions(zc))
+    assert sorted(len(g[2]) for g in groups) == [3, 5]
+    k = uzc.compute_skip_rounds([zc])
+    d = uzc._max_degree(zc)
+    dom_log = max(1, ((d << k) - 1).bit_length())
+    rng = random.Random(n)
+    eq_pt = [rng.getrandbits(128) for _ in range(n - k)]
+    stacked = uzc._claim_round_evals(zc, mls, eq_pt, k, d, dom_log)
+    single = torch.cat([uzc._claim_round_evals(zerocheck.ZerocheckClaim(n, 6, (c,)), mls, eq_pt,
+                                               k, d, dom_log) for c in zc.compositions])
+    assert stacked.shape == (8, (d - 1) << k, 4)
+    assert torch.equal(stacked, single)
+
+
+def test_stacked_stage2_equals_one_at_a_time():
+    """The regular sumcheck prover's round polynomials of 8 compositions of
+    two shapes (grouped, and mixed on the device before one interpolation)
+    equal each composition's prover on its own, round after round."""
+    from binius_tpu_torch.protocols.sumcheck import prove as sc_prove
+    from binius_tpu_torch.protocols.sumcheck.common import CompositeSumClaim, SumcheckClaim
+
+    zc, mls = _two_shape_claim(6, 7, 3)
+    claim = SumcheckClaim(6, 6, tuple(CompositeSumClaim(c, 0) for c in zc.compositions))
+    stacked = sc_prove.RegularSumcheckProver(claim, mls, order_high=True)
+    singles = [sc_prove.RegularSumcheckProver(SumcheckClaim(6, 6, (cs,)), mls, order_high=True)
+               for cs in claim.composite_sums]
+    rng = random.Random(5)
+    weights = [rng.getrandbits(128) for _ in range(8)]
+    for _ in range(3):
+        polys = [p.compute_mixed_round_poly([1]) for p in singles]
+        for j in range(8):
+            unit = [int(i == j) for i in range(8)]
+            assert stacked.compute_mixed_round_poly(unit) == polys[j]
+        mixed = []
+        for coeffs, w in zip(polys, weights):
+            mixed = common.add_coeffs(mixed, common.scale_coeffs(coeffs, w))
+        assert stacked.compute_mixed_round_poly(weights) == mixed
+        ch = rng.getrandbits(128)
+        for p in [stacked, *singles]:
+            p.fold(ch)
+
+
+def test_many_composition_claim_verifies_in_both_packages():
+    """A claim of 8 compositions of two shapes whose multilinears satisfy
+    them: the port's proof reads back through the JAX package's verifier."""
+    V = arith.ArithExpr.var
+    rng = np.random.default_rng(21)
+    n = 8
+    x = [rng.integers(0, 2, 1 << n, dtype=np.uint64) for _ in range(4)]
+    cols = x + [x[0] & x[1], x[0] ^ ((1 ^ x[2]) & x[3])]   # a*b, a + (1 + c)*d
+    comps = []
+    for i in range(8):
+        if i % 2:
+            comps.append(arith.CompositionPoly(V(0) + (arith.ArithExpr.const(1) + V(2)) * V(3)
+                                               + V(5), 6))
+        else:
+            comps.append(arith.CompositionPoly(V(0) * V(1) + V(4), 6))
+    zc = zerocheck.ZerocheckClaim(n, 6, tuple(comps))
+    mls = [(0, tower.from_ints(0, [int(v) for v in c], "cpu")) for c in cols]
+    skip = uzc.compute_skip_rounds([zc])
+    pt = ProverTranscript()
+    out = uzc.batch_prove([zc], [mls], pt, skip)
+    _check_verifiers([zc], pt.finalize(), skip, out)
