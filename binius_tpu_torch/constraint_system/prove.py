@@ -6,16 +6,18 @@ phases on one device (CUDA unless the caller names another):
   1. setup: observe the constraint-system digest;
   2. commit: pack the committed columns, RS-encode and Merkle-commit them,
      the root to the transcript;
-  3. exp: the exponentiation phase (nothing for a system with no
-     exponents);
+  3. exp: the exponentiation phase, the GKR walk of every exponent's
+     circuit (`exp.prove_phase`; nothing for a system with no exponents);
+     its layer witnesses and result columns are computed before the
+     commit;
   4. zerocheck over all constraint sets: the univariate-skip reduction, or
      the eq-indicator sumcheck when no round is skipped;
   5. evalcheck: reduce the virtual oracles' claims to committed ones;
   6. ring switch: committed small-field claims -> PIOP sumcheck claims;
   7. PIOP: the sumcheck interleaved with FRI, and the query phase.
 
-Channels (flushes, boundaries' balance), non-zero claims and exponents are
-not ported: a system that has them raises `NotImplementedError`.
+Channels (flushes, boundaries' balance) and non-zero claims are not
+ported: a system that has them raises `NotImplementedError`.
 `last_phase_times` holds the last proof's seconds per phase.
 """
 
@@ -47,7 +49,9 @@ class _PhaseTimer:
     """Wall seconds per phase; on a CUDA device each phase ends with a
     synchronize, so a phase's time holds its device work. Each phase is
     also a `torch.profiler.record_function` range, "prove.<phase>", that a
-    profiler of the proof sees (`scripts/profile_opening.py --proof`)."""
+    profiler of the proof sees (`scripts/profile_opening.py --proof`). A
+    phase entered twice (exp: its witnesses before the commit, its GKR
+    walk after) sums both spans."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -187,8 +191,9 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
     _observe_setup(transcript, system)
     witness = {oid: (lvl, d.to(dev)) for oid, (lvl, d) in witness.items()}
 
-    timer.phase("commit")
+    timer.phase("exp")   # the layer witnesses and result columns, which the commit needs
     exp_witnesses = exp_mod.make_exp_witnesses(system, witness)
+    timer.phase("commit")
     layout = CommitLayout.from_system(system)
     fri_params = make_fri_params(layout.commit_meta, log_inv_rate)
     packed_mles = []

@@ -111,13 +111,12 @@ def validate_witness(system: ConstraintSystem, witness: dict, boundaries=()) -> 
     ValueError on the first violation. Each constraint set is evaluated at
     the smallest level that holds its columns and constants: a subfield is
     closed under the field operations, so a value is zero there exactly
-    when it is zero in B128. Exponent constraints raise
-    `NotImplementedError` (the GKR exp phase is not ported)."""
+    when it is zero in B128. Each exponent's result column is recomputed
+    from its bits and base and compared."""
     from . import witness as witness_mod
 
-    if system.exponents:
-        raise NotImplementedError("validating exponent constraints is not ported")
     _validate_channels(system, witness, boundaries)
+    _validate_exponents(system, witness)
     for nz in system.non_zero_claims:
         level, data = witness_mod.materialize(system.oracles, witness, nz.oracle_id)
         if bool(torch.any(tower.is_zero(max(level, 0), data))):
@@ -130,6 +129,24 @@ def validate_witness(system: ConstraintSystem, witness: dict, boundaries=()) -> 
         for k, expr in enumerate(cs.zero_constraints):
             if bool(torch.any(expr.evaluate(level, mls) != 0)):
                 raise ValueError(f"zero constraint {k} violated on oracles {cs.oracle_ids}")
+
+
+def _validate_exponents(system: ConstraintSystem, witness: dict) -> None:
+    """Each exp-result column against base^exponent recomputed from its
+    bit columns."""
+    if not system.exponents:
+        return
+    from . import exp as exp_mod
+
+    recomputed = dict(witness)
+    exp_mod.make_exp_witnesses(system, recomputed)
+    for e in system.exponents:
+        lvl, have = tower.resolve_p1(*witness[e.exp_result_id])
+        rlvl, want = tower.resolve_p1(*recomputed[e.exp_result_id])
+        assert lvl == rlvl
+        if not torch.equal(have, want):
+            raise ValueError(f"exp result column (oracle {e.exp_result_id}) does not match "
+                             f"base^exponent")
 
 
 def _validate_channels(system: ConstraintSystem, witness: dict, boundaries) -> None:

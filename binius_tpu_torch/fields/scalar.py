@@ -17,6 +17,18 @@ import functools
 
 import numpy as np
 
+# a multiplicative generator of each level's field (B64's has order 2^64 - 1)
+GENERATORS = {
+    0: 0x1,
+    1: 0x2,
+    2: 0x5,
+    3: 0x2D,
+    4: 0xE2DE,
+    5: 0x03E21CEA,
+    6: 0x070F870DCD9C1D88,
+    7: 0x2E895399AF449ACE499596F6E5FCCAFA,
+}
+
 
 def bits(level: int) -> int:
     return 1 << level

@@ -1,15 +1,16 @@
 """M3 table builder: typed columns over the core constraint system.
 
 The port of the part of `binius_tpu/m3/builder/table.py` that tables
-without channels need: tables own committed, shifted, computed, constant
-and fixed columns and zero constraints, and `compile` lowers them to the
-core `ConstraintSystem` with its sizeless symbolic form (whose canonical
-digest the proof observes first). A computed column lowers to a linear
-combination oracle when its expression is linear and to a composite one
-otherwise; a constant or fixed column to a one-row transparent repeated
-over the rows. The JAX builder's other column kinds (packed, selected,
-structured, exponents), flushes, non-zero columns and size specs are not
-ported.
+without channels need: tables own committed, shifted, computed, constant,
+fixed and exponent columns and zero constraints, and `compile` lowers them
+to the core `ConstraintSystem` with its sizeless symbolic form (whose
+canonical digest the proof observes first). A computed column lowers to a
+linear combination oracle when its expression is linear and to a
+composite one otherwise; a constant or fixed column to a one-row
+transparent repeated over the rows; an exponent column (static or dynamic
+base) to a committed oracle that the prover fills, and an `Exp` record.
+The JAX builder's other column kinds (packed, selected, structured),
+flushes, non-zero columns and size specs are not ported.
 
 A column with 2^v values per row becomes an oracle with log_rows + v
 variables; the value index takes the LOW v bits, the row index the high
@@ -22,6 +23,7 @@ import dataclasses
 
 from ...constraint_system import canonical as canon
 from ...constraint_system import oracle as om
+from ...constraint_system.exp import Exp
 from ...constraint_system.system import ConstraintSet, ConstraintSystem
 from ...math.arith import ArithExpr
 from ...protocols.transparent import Constant, MLEFromValues
@@ -42,13 +44,15 @@ class Col:
 class _ColumnDef:
     col: Col
     kind: str                   # committed | shifted | computed | constant | fixed
+                                # | static_exp | dynamic_exp
     inner: object = None        # shifted: the inner Col; computed: the ArithExpr;
-                                # fixed: the pattern
+                                # fixed: the pattern; dynamic_exp: the base Col
     shift_offset: int = 0
     shift_block_bits: int = 0
     shift_variant: str = ""
-    expr_cols: tuple = ()       # computed: the Cols of the expression's variables
-    constant: int = 0
+    expr_cols: tuple = ()       # computed: the Cols of the expression's variables;
+                                # exponents: the bit Cols, LSB first
+    constant: int = 0           # constant: the value; static_exp: the base
 
 
 class TableBuilder:
@@ -97,6 +101,29 @@ class TableBuilder:
         self.columns.append(_ColumnDef(c, "fixed", inner=tuple(int(v) for v in pattern)))
         return c
 
+    def add_static_exp(self, name: str, bit_cols: list, base: int, base_level: int) -> Col:
+        """A committed column equal to base^(the exponent whose bits, LSB
+        first, are the B1 `bit_cols`), proven by the GKR exponentiation
+        phase. The prover computes its values; do not fill it."""
+        vpr = bit_cols[0].log_values_per_row
+        assert all(c.log_values_per_row == vpr and c.level == 0 for c in bit_cols)
+        assert len(bit_cols) <= 1 << base_level
+        c = self._new_col(base_level, vpr, name)
+        self.columns.append(_ColumnDef(c, "static_exp", expr_cols=tuple(bit_cols),
+                                       constant=base))
+        return c
+
+    def add_dynamic_exp(self, name: str, bit_cols: list, base: Col) -> Col:
+        """A committed column equal to base^(bit-composed exponent), the
+        base a column; the result has the base's level."""
+        vpr = bit_cols[0].log_values_per_row
+        assert all(c.log_values_per_row == vpr and c.level == 0 for c in bit_cols)
+        assert base.log_values_per_row == vpr
+        assert len(bit_cols) <= 1 << base.level
+        c = self._new_col(base.level, vpr, name)
+        self.columns.append(_ColumnDef(c, "dynamic_exp", inner=base, expr_cols=tuple(bit_cols)))
+        return c
+
     def assert_zero(self, name: str, cols: list, expr: ArithExpr, group: str = "") -> None:
         """expr is over var(i) = cols[i], all of one values-per-row. The
         constraints of one (table, values-per-row) partition lower into ONE
@@ -126,8 +153,10 @@ class M3ConstraintSystem:
         oracles = om.OracleSet()
         oracle_map: dict = {}
         constraint_sets = []
+        exponents = []
         sym_oracles: list = []
         sym_csets: list = []
+        sym_exps: list = []
         assert len(table_log_rows) == len(self.tables)
         for t_idx, (t, log_rows) in enumerate(zip(self.tables, table_log_rows)):
             def rec(name, vpr, level, variant):
@@ -179,12 +208,34 @@ class M3ConstraintSystem:
                         (("vec_f128", cd.inner),)))
                     oracle_map[key] = oracles.add_repeating(tid, log_rows, nm)
                     rec(nm, vpr, col.level, ("repeating", tid))
+                elif cd.kind in ("static_exp", "dynamic_exp"):
+                    # the oracle in declaration order; its Exp record comes
+                    # with its partition below
+                    oracle_map[key] = oracles.add_committed(n_vars, col.level, nm)
+                    rec(nm, vpr, col.level, ("committed",))
                 else:
                     raise NotImplementedError(f"{cd.kind} columns are not ported")
 
-            # one constraint set per partition, ascending values-per-row: the
-            # used columns in declaration order, the constraints in call order
+            # per partition, ascending values-per-row: the Exp records of its
+            # exponent columns in declaration order, then one constraint set
+            # of the used columns in declaration order, the constraints in
+            # call order
             for vpr in sorted({c.col.log_values_per_row for c in t.columns}):
+                for cd in t.columns:
+                    if (cd.col.log_values_per_row != vpr
+                            or cd.kind not in ("static_exp", "dynamic_exp")):
+                        continue
+                    res_id = oracle_map[(t.table_id, cd.col.index)]
+                    bits_ids = tuple(oracle_map[(t.table_id, b.index)] for b in cd.expr_cols)
+                    if cd.kind == "static_exp":
+                        exponents.append(Exp(bits_ids, res_id, cd.col.level,
+                                             base_const=cd.constant))
+                        base = ("const", cd.constant, cd.col.level)
+                    else:
+                        base_id = oracle_map[(t.table_id, cd.inner.index)]
+                        exponents.append(Exp(bits_ids, res_id, cd.col.level, base_oracle=base_id))
+                        base = ("oracle", base_id)
+                    sym_exps.append(canon.SymbolicExp(bits_ids, base, res_id))
                 entries = [(name, expr, cols, steps)
                            for name, c_vpr, expr, cols, steps in t.zero_constraints
                            if c_vpr == vpr]
@@ -209,10 +260,10 @@ class M3ConstraintSystem:
                 sym_csets.append(canon.SymbolicConstraintSet(t_idx, vpr, ids,
                                                              tuple(sym_constraints)))
         symbolic = canon.SymbolicSystem(
-            tuple(sym_oracles), tuple(sym_csets), (), (), (), self.n_channels,
+            tuple(sym_oracles), tuple(sym_csets), (), (), tuple(sym_exps), self.n_channels,
             tuple(("arbitrary",) for _ in self.tables))
         return ConstraintSystem(oracles, constraint_sets, [], self.n_channels, [],
-                                symbolic=symbolic), oracle_map
+                                exponents, symbolic=symbolic), oracle_map
 
 
 def _linearize(expr: ArithExpr, n_vars: int):

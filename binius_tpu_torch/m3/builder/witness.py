@@ -3,8 +3,10 @@
 The port of `binius_tpu/m3/builder/witness.py` for power-of-two tables
 (numpy in place of the JAX module's arrays): the user fills committed
 columns, with typed helpers for bit-packed integers, and
-`to_core_witness` puts them on the device and materializes every virtual
-column (shifted, computed, constant, fixed) from its oracle's definition.
+`to_core_witness` puts them on the device, computes the exponent columns
+(`constraint_system.exp.make_exp_witnesses`) and materializes every
+virtual column (shifted, computed, constant, fixed) from its oracle's
+definition.
 """
 
 from __future__ import annotations
@@ -85,7 +87,8 @@ class WitnessIndex:
     def to_core_witness(self, core_system, oracle_map, device=None) -> dict:
         """The core prover's witness on `device` (CUDA unless named):
         committed columns from the buffers, B1 ones bit-packed on the host
-        where they are long enough, and every virtual column materialized."""
+        where they are long enough, the exponent columns computed there and
+        every virtual column materialized."""
         dev = resolve(device)
         witness: dict = {}
         for t, tw in zip(self.system.tables, self.tables):
@@ -108,6 +111,10 @@ class WitnessIndex:
                     witness[oid] = (level, tower.from_numpy(level, vals.astype(np.uint32), dev))
                 else:
                     witness[oid] = (level, tower.from_numpy(level, vals, dev))
+        if core_system.exponents:
+            # the exponent result columns, which the prover fills
+            from ...constraint_system import exp as exp_mod
+            exp_mod.make_exp_witnesses(core_system, witness)
         for oid in oracle_map.values():
             core_witness.materialize(core_system.oracles, witness, oid)
         return witness

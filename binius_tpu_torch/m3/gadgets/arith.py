@@ -1,9 +1,11 @@
-"""The u32_add gadget.
+"""The u32 arithmetic and bitwise gadgets.
 
-The port of `U32Add` of `binius_tpu/m3/gadgets/arith.py` (ripple-carry
-addition over vertically packed B1 columns, one u32 per row), with the
-host witness values of its committed columns (`u32_add_populate`) and the
-seeded instances that `chip_smoke.py` and the tests prove.
+The port of `U32Add` and of `u32_bitwise_and` / `_xor` / `_or` of
+`binius_tpu/m3/gadgets/arith.py` (over vertically packed B1 columns, one
+u32 per row), with the host witness values of the adder's committed
+columns (`u32_add_populate`) and the seeded instances that `chip_smoke.py`
+and the tests prove: the u32_add table and `examples/bitwise_ops.py`'s
+table of the three bitwise ops.
 """
 
 from __future__ import annotations
@@ -67,6 +69,46 @@ class U32Add:
         return z
 
 
+def u32_bitwise_and(t: TableBuilder, name: str, xin: Col, yin: Col) -> Col:
+    zout = t.add_committed(f"{name}.zout", 0, LOG_U32)
+    x, y, z = V(0), V(1), V(2)
+    t.assert_zero(f"{name}.and", [xin, yin, zout], x * y + z)
+    return zout
+
+
+def u32_bitwise_xor(t: TableBuilder, name: str, xin: Col, yin: Col) -> Col:
+    zout = t.add_committed(f"{name}.zout", 0, LOG_U32)
+    x, y, z = V(0), V(1), V(2)
+    t.assert_zero(f"{name}.xor", [xin, yin, zout], x + y + z)
+    return zout
+
+
+def u32_bitwise_or(t: TableBuilder, name: str, xin: Col, yin: Col) -> Col:
+    zout = t.add_committed(f"{name}.zout", 0, LOG_U32)
+    x, y, z = V(0), V(1), V(2)
+    t.assert_zero(f"{name}.or", [xin, yin, zout], x + y + x * y + z)
+    return zout
+
+
+def bitwise_system(log_rows: int, xs, ys, device=None):
+    """`examples/bitwise_ops.py`'s table "bitwise" of 2^log_rows rows: the
+    u32 inputs xin and yin and their AND, XOR and OR, and its witness on
+    `device` (CUDA unless named): returns (core system, witness)."""
+    m3 = M3ConstraintSystem()
+    t = m3.add_table("bitwise")
+    xin = t.add_committed("xin", 0, LOG_U32)
+    yin = t.add_committed("yin", 0, LOG_U32)
+    outs = [u32_bitwise_and(t, "and", xin, yin), u32_bitwise_xor(t, "xor", xin, yin),
+            u32_bitwise_or(t, "or", xin, yin)]
+    core, omap = m3.compile([log_rows])
+    wi = WitnessIndex(m3, [log_rows])
+    tw = wi.table(0)
+    xs, ys = np.asarray(xs, dtype=np.uint64), np.asarray(ys, dtype=np.uint64)
+    for col, vals in zip((xin, yin, *outs), (xs, ys, xs & ys, xs ^ ys, xs | ys)):
+        tw.set_packed_ints(col, vals)
+    return core, wi.to_core_witness(core, omap, device)
+
+
 def u32_add_system(log_rows: int, xs, ys, device=None):
     """The one-table u32_add system of 2^log_rows rows adding the u32 rows
     xs and ys, and its witness on `device` (CUDA unless named): returns
@@ -86,7 +128,8 @@ def u32_add_system(log_rows: int, xs, ys, device=None):
 
 
 def u32_add_rows(log_rows: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
-    """2^log_rows random u32 pairs drawn from `seed`."""
+    """2^log_rows random u32 pairs drawn from numpy's `default_rng(seed)`,
+    x then y (the u32_add and bitwise_ops instances)."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)
     y = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive binius_tpu_torch's proofs of the reference grid's circuits
-(u32_add, b32_mul, Keccak-f, Grøstl-P; and the u32_add commit and opening
-on their own) on one NVIDIA H100 and check them.
+(u32_add, b32_mul, Keccak-f, Grøstl-P, u32 multiplication through the
+GKR exponentiation phase, u32 bitwise ops; and the u32_add commit and
+opening on their own) on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -51,12 +52,17 @@ on their own) on one NVIDIA H100 and check them.
    (`binius_tpu_torch.circuits.instance`): the u32_add constraint system
    of 2^log_rows rows, then the reference grid's other circuits at their
    grid sizes: b32_mul (2^20 B32 products), keccak (2^13 Keccak-f[1600]
-   permutations) and groestl (2^14 Grøstl P permutations). For each: the
+   permutations), groestl (2^14 Grøstl P permutations), u32_mul_gkr (2^20
+   u32 products, `MulUU32`) and bitwise_ops (2^22 rows of u32 AND, XOR
+   and OR). For each: the
    system's size and the commit's NTT plan; the first run's time with its
    phase split; one run with every launch counter set to 0 just before
    and read just after (K1, K2, K3, K5 and K6 each launched, K4 once per
    run of the plan's cross stages; no host Grøstl compression), its
-   length, sha256 and peak device memory; the port's `verify` accepts it
+   length, sha256 and peak device memory; for a system with exponents
+   (u32_mul_gkr), every exponent's layer witnesses at the proof's size
+   computed through K1 and through its plain version `bitslice.mul` on the
+   card, bit-equal, K1 once per layer; the port's `verify` accepts it
    and rejects it with one byte flipped; the warm prove time (median of 3)
    with its phase split (commit, exp, zerocheck, evalcheck, ring switch,
    PIOP) and the verify time, the bytes equal across the runs.
@@ -69,8 +75,9 @@ on their own) on one NVIDIA H100 and check them.
    plain versions on the CPU against the kernel path's bytes; b32_mul at
    2^10, keccak at 2^1 and groestl at 2^3 (seed 0) on the card against the
    JAX package's length and sha256 (`GOLDEN_CIRCUITS`), and each through
-   the plain versions on the CPU against the card's bytes.
-9. One JSON line for the kernels (launches: the four proofs' counted runs
+   the plain versions on the CPU against the card's bytes; u32_mul_gkr at
+   2^7 and bitwise_ops at 2^5 the same way.
+9. One JSON line for the kernels (launches: the six proofs' counted runs
    together, and per proof), then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -120,6 +127,9 @@ GOLDEN_CIRCUITS = {
     "b32_mul": (10, 35792, "7f2b964a9d4a8326edf4fe5d1900b2a243b019269e9170c6baa5135e0e290847"),
     "keccak": (1, 229536, "c6bd0d572e02e3d17609fe1b96f60a57656c27380acd805aef036e46e6da7185"),
     "groestl": (3, 122928, "339e2b793472a0d5a544aa4761267e9bba3b6fc431f77e0e359c5cfc28bbf40a"),
+    "u32_mul_gkr": (7, 119056,
+                    "037d26fe0103d4a1b7bd69b62f08a63ead6aab24b0cdda6d91c89718424ab7bf"),
+    "bitwise_ops": (5, 7056, "b940a3424843ed12f7903164e954209c7bc6d870fcb7e37fb5da7a5d083257fa"),
 }
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
@@ -939,6 +949,42 @@ def main() -> int:
         return k4, (f"2^{n.bit_length() - 1} elements, {len(plan_.stages)} stages: {cross_} "
                     f"cross in {k4} runs + {plan_.n_local} fused (tile {plan_.tile})")
 
+    def check_exp_layers(core, witness):
+        """Every exponent's layer witnesses (`exp.make_exp_witnesses`) on
+        the card through K1, and again with `bitslice_cuda.mul` replaced
+        by its plain version `bitslice.mul`: bit-equal, K1 launched once
+        per layer on the first and never on the second."""
+        from binius_tpu_torch.constraint_system import exp as exp_mod
+
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        kernel = exp_mod.make_exp_witnesses(core, dict(witness))
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        k1 = cuda_lib.launches["k1_tower_mul"]
+        n_layers = sum(w.layers.shape[0] for w in kernel)
+        if k1 != n_layers:
+            raise AssertionError(f"exp layers: K1 launched {k1} times for {n_layers} layers")
+        k1_mul = bitslice_cuda.mul
+        bitslice_cuda.mul = bitslice.mul
+        try:
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            plain = exp_mod.make_exp_witnesses(core, dict(witness))
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+        finally:
+            bitslice_cuda.mul = k1_mul
+        if cuda_lib.launches["k1_tower_mul"]:
+            raise AssertionError("exp layers: K1 launched on the plain path")
+        for e, a, b in zip(exp_mod.reorder(core.exponents, core.oracles), kernel, plain):
+            if not torch.equal(a.layers, b.layers):
+                raise AssertionError(f"exp layers of oracle {e.exp_result_id}: K1 != plain")
+        log(f"exp layers: {len(kernel)} exponents, {n_layers} layers of "
+            f"{tuple(kernel[0].layers.shape[1:])} at level {kernel[0].level}, K1 ({k1} launches, "
+            f"{t_kernel * 1e3:.1f} ms) = the plain bitslice.mul on the card "
+            f"({t_plain * 1e3:.1f} ms)")
+
     def drive_proof(circuit, size):
         """Prove `circuit` at 2^size on the card: the first run's time and
         split, with the commit's codeword and every Merkle tree it builds
@@ -1026,6 +1072,8 @@ def main() -> int:
             raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
         log(f"proof {circuit}: {len(proof)} bytes, sha256 {hashlib.sha256(proof).hexdigest()}, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if core.exponents:
+            check_exp_layers(core, witness)
         t0 = time.perf_counter()
         csp.verify(core, proof)
         log(f"proof {circuit} verifies ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
@@ -1063,7 +1111,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the u32_add proof: "
                              f"{proof_launches['u32_add']}")
     phases.done("proof u32_add")
-    for circuit in ("b32_mul", "keccak", "groestl"):
+    for circuit in ("b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops"):
         proof_launches[circuit] = drive_proof(circuit, circuits.GRID_SIZE[circuit])
         phases.done(f"proof {circuit}")
     for r in rows:

@@ -19,7 +19,14 @@ instance helpers:
 - `groestl`: `examples/groestl.py`'s table of 2^size Grøstl P
   permutations, 64 state bytes per row, row-major, from
   `random.Random(seed).getrandbits(8)`
-  (`binius_tpu_torch.m3.gadgets.groestl.groestl_inputs`).
+  (`binius_tpu_torch.m3.gadgets.groestl.groestl_inputs`);
+- `u32_mul_gkr`: `examples/u32_mul_gkr.py`'s table of 2^size u32
+  products through the GKR exponentiation phase (`MulUU32`), x then y
+  from `random.seed(seed)`, each `random.getrandbits(32)`
+  (`binius_tpu_torch.m3.gadgets.mul.mul_inputs`);
+- `bitwise_ops`: `examples/bitwise_ops.py`'s table of 2^size rows of u32
+  AND, XOR and OR, x then y from `default_rng(seed)`
+  (`binius_tpu_torch.m3.gadgets.arith.bitwise_rows`).
 
 The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`,
 checked with the JAX verifier:
@@ -39,7 +46,8 @@ import random
 import sys
 
 # the size each circuit's golden digest is pinned at
-DEFAULT_SIZE = {"u32_add": 16, "b32_mul": 10, "keccak": 1, "groestl": 3}
+DEFAULT_SIZE = {"u32_add": 16, "b32_mul": 10, "keccak": 1, "groestl": 3,
+                "u32_mul_gkr": 7, "bitwise_ops": 5}
 
 
 def build(circuit: str, size: int, seed: int, variant: str = "P"):
@@ -85,6 +93,36 @@ def build(circuit: str, size: int, seed: int, variant: str = "P"):
         core = ConstraintSystem(oracles, [ConstraintSet(size, (a_id, b_id, c_id), (A * B + C,))])
         a, b = tower.from_numpy(5, a_np), tower.from_numpy(5, b_np)
         return core, {a_id: (5, a), b_id: (5, b), c_id: (5, tower.mul(5, a, b))}
+    if circuit == "bitwise_ops":
+        from binius_tpu.m3.gadgets import arith
+        rng = np.random.default_rng(seed)
+        x = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+        y = rng.integers(0, 1 << 32, size=n, dtype=np.uint64)
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("bitwise")
+        xin = t.add_committed("xin", 0, arith.LOG_U32)
+        yin = t.add_committed("yin", 0, arith.LOG_U32)
+        outs = [arith.u32_bitwise_and(t, "and", xin, yin),
+                arith.u32_bitwise_xor(t, "xor", xin, yin),
+                arith.u32_bitwise_or(t, "or", xin, yin)]
+        core, omap = m3.compile([size])
+        wi = WitnessIndex(m3, [size])
+        tw = wi.table(0)
+        for col, vals in zip((xin, yin, *outs), (x, y, x & y, x ^ y, x | y)):
+            tw.set_packed_ints(col, vals)
+        return core, wi.to_core_witness(core, omap)
+    if circuit == "u32_mul_gkr":
+        from binius_tpu.m3.gadgets.mul import MulUU32
+        random.seed(seed)
+        xs = [random.getrandbits(32) for _ in range(n)]
+        ys = [random.getrandbits(32) for _ in range(n)]
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("mul")
+        gadget = MulUU32.build(t, "mul")
+        core, omap = m3.compile([size])
+        wi = WitnessIndex(m3, [size])
+        gadget.populate(wi.table(0), xs, ys)
+        return core, wi.to_core_witness(core, omap)
     rng = random.Random(seed)
     m3 = M3ConstraintSystem()
     if circuit == "keccak":

@@ -28,8 +28,9 @@ here, each in a process of its own, in the order DIR, here, here, DIR.
 
 --proof profiles the whole proof instead (`constraint_system.prove.prove`
 on `circuits.instance(circuit, log-rows, seed)`, as `chip_smoke.py` proves
-it: u32_add, b32_mul, keccak or groestl, 2^log-rows rows, products or
-permutations, by default the circuit's grid size). It first prints the
+it: u32_add, b32_mul, keccak, groestl, u32_mul_gkr or bitwise_ops,
+2^log-rows rows, products or permutations, by default the circuit's grid
+size). It first prints the
 warm proof's wall time and phases (median of 3) and the verify time, the
 latter also with the evalcheck's shift indicators checked one claim at a
 time where the tree stacks them; the profile then adds the device
@@ -121,7 +122,8 @@ def main() -> int:
                     help="log2 of the rows, products or permutations (default: 22, or "
                          "the circuit's grid size with --proof)")
     ap.add_argument("--circuit", default="u32_add",
-                    choices=("u32_add", "b32_mul", "keccak", "groestl"))
+                    choices=("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr",
+                             "bitwise_ops"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")

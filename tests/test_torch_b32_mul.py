@@ -6,7 +6,8 @@ A*B + C = 0) of 2^10 products whose inputs numpy's `default_rng(0)` draws:
 the oracle sets and the digest of a hand-built system (a Grøstl-256 of the
 `repr` of its structural tokens) against the JAX package's, the witnesses
 byte for byte, `validate_witness` in both packages (it accepts the witness
-and rejects one flipped bit), the port's proof against the JAX package's
+and rejects one flipped bit; the port's also checks an exponent added to
+the system), the port's proof against the JAX package's
 length and sha256 (`chip_smoke.GOLDEN_CIRCUITS`, from
 `scripts/port_golden_proof.py --circuit b32_mul`; the JAX prover is not run
 here), and the port's verifier on the proof and on a flipped byte. Exact
@@ -117,10 +118,25 @@ def test_reference_validate_witness(reference):
 
 
 def test_validate_witness_refuses_exponents(port):
+    """A system with an exponent (g^b over one B1 bit column b, g the B32
+    generator): its result column is recomputed from the bits, so the
+    right column is accepted and a wrong one refused."""
+    from binius_tpu_torch.constraint_system.exp import Exp
+    from binius_tpu_torch.fields import scalar, tower
+
     core = b32_mul.b32_mul_system(2)
-    core.exponents = [object()]
-    with pytest.raises(NotImplementedError):
-        cs_system.validate_witness(core, {})
+    bit = core.oracles.add_committed(2, 0, "b")
+    res = core.oracles.add_committed(2, 5, "g^b")
+    g = scalar.GENERATORS[5]
+    core.exponents = [Exp((bit,), res, 5, base_const=g)]
+    bits = [1, 0, 1, 1]
+    witness = b32_mul.b32_mul_witness(core, *b32_mul.b32_mul_inputs(2, SEED), "cpu")
+    witness[bit] = (0, tower.from_ints(0, bits, "cpu"))
+    witness[res] = (5, tower.from_ints(5, [g if v else 1 for v in bits], "cpu"))
+    cs_system.validate_witness(core, dict(witness))
+    witness[res] = (5, tower.from_ints(5, [g, 1, g, 1], "cpu"))
+    with pytest.raises(ValueError, match="does not match base"):
+        cs_system.validate_witness(core, witness)
 
 
 def test_proof_matches_jax_digest(proof):
