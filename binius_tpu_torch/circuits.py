@@ -16,22 +16,50 @@ it, from inputs drawn from `seed` with the generator the example uses:
 - `bitwise_ops`: 2^size rows of u32 AND, XOR and OR
   (`m3.gadgets.arith`, `examples/bitwise_ops.py`). The upstream grid
   proves the three ops as three instances; this one, as the JAX package's
-  example does, holds the three in one table.
+  example does, holds the three in one table;
+- `keccak_lookups`: 2^size Keccak-f[1600] permutations with chi checked
+  through the bit-AND lookup channel, and the 4-row lookup table
+  (`m3.gadgets.keccak.KeccakLookedupCS`, `examples/keccak_lookups.py`,
+  whose `random.seed(seed)` draws the lanes `keccak_inputs` draws from
+  `random.Random(seed)`); its table sizes [2^size, 4] are the proof's
+  first message;
+- the channel systems (`CHANNEL_SYSTEMS`, `channel_system`): the
+  hand-built systems of the JAX package's channel and lookup tests on
+  2^size rows: a permutation channel, boundaries, selector flushes, a
+  lookup with multiplicity bits, a non-zero claim.
 
 `GRID_SIZE` is each circuit's size in the reference grid (the benchmark
-sizes of the upstream project's record).
+sizes of the upstream project's record), and keccak_lookups' at the
+keccak grid's size.
 """
 
 from __future__ import annotations
 
-CIRCUITS = ("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops")
+import random
+
+CIRCUITS = ("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
+            "keccak_lookups")
 GRID_SIZE = {"u32_add": 22, "b32_mul": 20, "keccak": 13, "groestl": 14,
-             "u32_mul_gkr": 20, "bitwise_ops": 22}
+             "u32_mul_gkr": 20, "bitwise_ops": 22, "keccak_lookups": 13}
+CHANNEL_SYSTEMS = ("perm_channel", "boundary", "selector_flush", "lookup_flush", "nonzero")
 
 
 def instance(circuit: str, size: int, seed: int, device=None):
-    """(core system, witness on `device`) of one seeded instance (CUDA
-    unless `device` names another)."""
+    """(core system, witness on `device`, statement) of one seeded instance
+    (CUDA unless `device` names another): the statement is the keywords
+    that `prove` and `verify` take with it (boundaries, table sizes),
+    empty for a circuit that has none."""
+    if circuit in CHANNEL_SYSTEMS:
+        return channel_system(circuit, size, seed, device)
+    if circuit == "keccak_lookups":
+        from .m3.gadgets import keccak
+        core, witness, sizes, _ = keccak.keccak_lookups_system(
+            1 << size, keccak.keccak_inputs(size, seed), device)
+        return core, witness, {"table_sizes": sizes}
+    return (*_grid_instance(circuit, size, seed, device), {})
+
+
+def _grid_instance(circuit: str, size: int, seed: int, device):
     if circuit == "u32_add":
         from .m3.gadgets import arith
         return arith.u32_add_system(size, *arith.u32_add_rows(size, seed), device)
@@ -52,3 +80,81 @@ def instance(circuit: str, size: int, seed: int, device=None):
         from .m3.gadgets import arith
         return arith.bitwise_system(size, *arith.u32_add_rows(size, seed), device)
     raise ValueError(f"unknown circuit {circuit!r}")
+
+
+def channel_system(name: str, size: int, seed: int, device=None):
+    """(core system, witness on `device`, statement) of a hand-built
+    channel system on 2^size rows of B32 columns, the values drawn from
+    `random.Random(seed)` in the order written here:
+
+    - `perm_channel`: a pushed into channel 0, b (a shuffled) pulled;
+    - `boundary`: a pulled, each of its values pushed as a boundary;
+    - `selector_flush`: a pushed where sel (1, 0, 1, 1, 0, 0, 1, 0 per 8
+      rows) is 1, b pulled where sel_b is 1 (the selected values first);
+    - `lookup_flush`: the table (t_idx, t_val = t_idx^2 mod 256) pushed
+      with multiplicity 1 where m0 is 1 and 2 where m1 is 1, the reads
+      (r_idx, r_val) pulled (reads redrawn until no count exceeds 3);
+    - `nonzero`: a non-zero claim on a (odd values)."""
+    from .constraint_system import oracle as om
+    from .constraint_system.system import (PULL, PUSH, Boundary, ConstraintSystem, Flush,
+                                           NonZeroClaim)
+    from .device import resolve
+    from .fields import tower
+
+    dev = resolve(device)
+    rng = random.Random(seed)
+    n = 1 << size
+    oracles = om.OracleSet()
+    cols, statement = {}, {}
+
+    def commit(nm, vals):
+        cols[oracles.add_committed(size, 5, nm)] = vals
+
+    if name == "perm_channel":
+        a = [rng.getrandbits(32) for _ in range(n)]
+        b = list(a)
+        rng.shuffle(b)
+        commit("a", a)
+        commit("b", b)
+        system = ConstraintSystem(oracles, [], flushes=[Flush(0, PUSH, (0,)),
+                                                        Flush(0, PULL, (1,))], n_channels=1)
+    elif name == "boundary":
+        a = [rng.getrandbits(32) for _ in range(n)]
+        commit("a", a)
+        system = ConstraintSystem(oracles, [], flushes=[Flush(0, PULL, (0,))], n_channels=1)
+        statement["boundaries"] = [Boundary(0, PUSH, (v,)) for v in a]
+    elif name == "selector_flush":
+        a = [rng.getrandbits(32) for _ in range(n)]
+        sel = [(0b01001101 >> (r % 8)) & 1 for r in range(n)]
+        picked = [v for v, s in zip(a, sel) if s]
+        b = picked + [rng.getrandbits(32) for _ in range(n - len(picked))]
+        commit("a", a)
+        commit("sel", sel)
+        commit("b", b)
+        commit("sel_b", [1] * len(picked) + [0] * (n - len(picked)))
+        system = ConstraintSystem(oracles, [], flushes=[
+            Flush(0, PUSH, (0,), selector_ids=(1,)),
+            Flush(0, PULL, (2,), selector_ids=(3,))], n_channels=1)
+    elif name == "lookup_flush":
+        table_val = [(i * i) & 0xFF for i in range(n)]
+        while True:
+            reads = [rng.randrange(n) for _ in range(n)]
+            counts = [reads.count(i) for i in range(n)]
+            if max(counts) < 4:
+                break
+        commit("t_idx", list(range(n)))
+        commit("t_val", table_val)
+        commit("r_idx", reads)
+        commit("r_val", [table_val[i] for i in reads])
+        commit("m0", [c & 1 for c in counts])
+        commit("m1", [c >> 1 for c in counts])
+        system = ConstraintSystem(oracles, [], flushes=[
+            Flush(0, PUSH, (0, 1), multiplicity=1, selector_ids=(4,)),
+            Flush(0, PUSH, (0, 1), multiplicity=2, selector_ids=(5,)),
+            Flush(0, PULL, (2, 3))], n_channels=1)
+    elif name == "nonzero":
+        commit("a", [rng.getrandbits(32) | 1 for _ in range(n)])
+        system = ConstraintSystem(oracles, [], non_zero_claims=[NonZeroClaim(0)])
+    else:
+        raise ValueError(f"unknown channel system {name!r}")
+    return system, {oid: (5, tower.from_ints(5, v, dev)) for oid, v in cols.items()}, statement

@@ -33,6 +33,7 @@ transcript observes `digest(symbolic)` in place of the legacy repr digest.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import struct
 
@@ -369,4 +370,12 @@ def serialize(sym: SymbolicSystem) -> bytes:
 
 def digest(sym: SymbolicSystem) -> bytes:
     """`ConstraintSystem::digest::<Groestl256>()` (`mod.rs:51-57`)."""
-    return groestl256(serialize(sym))
+    return _groestl256_memo(serialize(sym))
+
+
+@functools.lru_cache(maxsize=16)
+def _groestl256_memo(data: bytes) -> bytes:
+    """Grøstl-256 of a serialization, remembered: the M3 verifier compiles
+    the system anew from the proof's table sizes, and the host hash of
+    keccak_lookups' 310 KB takes about a second."""
+    return groestl256(data)

@@ -10,15 +10,22 @@ phases on one device (CUDA unless the caller names another):
      circuit (`exp.prove_phase`; nothing for a system with no exponents);
      its layer witnesses and result columns are computed before the
      commit;
-  4. zerocheck over all constraint sets: the univariate-skip reduction, or
+  4. gpa: the channels and non-zero claims, through the GKR grand-product
+     argument (`protocols.gkr_gpa`): alpha and beta sampled, one flush
+     oracle per flush (alpha + sum beta^i col_i, or 1 + sel * (1 + that)
+     with selectors), every instance's product written, each channel's
+     balance against its boundaries checked, the product trees walked
+     down to evaluation claims (nothing for a system with no flush and no
+     non-zero claim);
+  5. zerocheck over all constraint sets: the univariate-skip reduction, or
      the eq-indicator sumcheck when no round is skipped;
-  5. evalcheck: reduce the virtual oracles' claims to committed ones;
-  6. ring switch: committed small-field claims -> PIOP sumcheck claims;
-  7. PIOP: the sumcheck interleaved with FRI, and the query phase.
+  6. evalcheck: reduce the virtual oracles' claims to committed ones;
+  7. ring switch: committed small-field claims -> PIOP sumcheck claims;
+  8. PIOP: the sumcheck interleaved with FRI, and the query phase.
 
-Channels (flushes, boundaries' balance) and non-zero claims are not
-ported: a system that has them raises `NotImplementedError`.
-`last_phase_times` holds the last proof's seconds per phase.
+The boundaries are observed after the digest, and the table sizes, where
+given, are the proof's first message. `last_phase_times` holds the last
+proof's seconds per phase.
 """
 
 from __future__ import annotations
@@ -29,16 +36,17 @@ import time
 import torch
 
 from ..device import resolve
-from ..fields import tower
-from ..math.arith import CompositionPoly
-from ..protocols import evalcheck, piop, ring_switch
+from ..fields import scalar, tower
+from ..math.arith import ArithExpr, CompositionPoly
+from ..protocols import evalcheck, gkr_gpa, piop, ring_switch
 from ..protocols import fri as fri_mod
 from ..protocols.sumcheck import univariate_zerocheck as uzc
 from ..protocols.sumcheck import zerocheck as zc
 from ..protocols.sumcheck.common import LEVEL
 from ..transcript.transcript import ProverTranscript, VerifierTranscript
 from . import exp as exp_mod
-from .system import ConstraintSystem
+from . import witness as witness_mod
+from .system import PUSH, ConstraintSystem
 
 SECURITY_BITS = 100
 
@@ -152,15 +160,145 @@ def _skip_evalcheck_claims(sets, out):
             for oid, ev in zip(s.oracle_ids, evs)]
 
 
-def _refuse_unported(system: ConstraintSystem, boundaries) -> None:
-    if system.flushes or system.non_zero_claims or boundaries:
-        raise NotImplementedError(
-            "channels, boundaries and non-zero claims (the grand-product phase) are not ported")
-
-
-def _observe_setup(transcript, system: ConstraintSystem) -> None:
+def _observe_setup(transcript, system: ConstraintSystem, boundaries) -> None:
     transcript.observe().write_bytes(system.digest())
-    transcript.observe()   # the (empty) boundaries: obtaining the writer is observed
+    w = transcript.observe()
+    for b in boundaries:
+        w.write_u64(b.channel_id)
+        w.write_bytes(b.direction.encode())
+        w.write_u64(b.multiplicity)
+        w.write_scalars(LEVEL, list(b.values))
+
+
+def _working_copy(system: ConstraintSystem) -> ConstraintSystem:
+    """The system with its own oracle set: the flush oracles join it while
+    proving or verifying."""
+    return ConstraintSystem(system.oracles.clone(), system.constraint_sets, system.flushes,
+                            system.n_channels, system.non_zero_claims, system.exponents)
+
+
+def _make_flush_oracles(system: ConstraintSystem, alpha: int, beta: int):
+    """The flush oracles, made alike on both sides: alpha + sum beta^i
+    col_i as a linear combination, or with selectors the composite
+    1 + sel * (1 + alpha + sum beta^i col_i), so that a deselected row
+    puts 1 into the product. The flushes are stable-sorted by channel id
+    first. Returns [(flush, oracle id)]."""
+    out = []
+    for f in sorted(system.flushes, key=lambda f: f.channel_id):
+        n_vars = system.oracles[f.oracle_ids[0]].n_vars
+        coeff = beta
+        terms = []
+        for oid in f.oracle_ids:
+            assert system.oracles[oid].n_vars == n_vars
+            terms.append((oid, coeff))
+            coeff = scalar.mul(LEVEL, coeff, beta)
+        if not f.selector_ids:
+            oid = system.oracles.add_linear_combination(n_vars, terms, alpha, f"flush_{len(out)}")
+        else:
+            ns = len(f.selector_ids)
+            mix = ArithExpr.const(alpha ^ 1, 7)
+            for i, (_, c) in enumerate(terms):
+                mix = mix + ArithExpr.const(c, 7) * ArithExpr.var(i + ns)
+            sel = ArithExpr.var(0)
+            for k in range(1, ns):
+                sel = sel * ArithExpr.var(k)
+            oid = system.oracles.add_composite(n_vars, [*f.selector_ids, *f.oracle_ids],
+                                               ArithExpr.const(1) + sel * mix,
+                                               f"flush_{len(out)}")
+        out.append((f, oid))
+    return out
+
+
+def _boundary_value(b, alpha: int, beta: int) -> int:
+    acc = alpha
+    coeff = beta
+    for v in b.values:
+        acc ^= scalar.mul(LEVEL, coeff, v)
+        coeff = scalar.mul(LEVEL, coeff, beta)
+    return acc
+
+
+def _check_channel_balance(system, boundaries, flush_products, alpha, beta) -> None:
+    """Per channel, the pushes' products (each to its multiplicity) against
+    the pulls', the boundaries' values included."""
+    lhs = [1] * system.n_channels
+    rhs = [1] * system.n_channels
+    for (f, _), p in flush_products:
+        side = lhs if f.direction == PUSH else rhs
+        side[f.channel_id] = scalar.mul(LEVEL, side[f.channel_id],
+                                        scalar.pow(LEVEL, p, f.multiplicity))
+    for b in boundaries:
+        v = scalar.pow(LEVEL, _boundary_value(b, alpha, beta), b.multiplicity)
+        side = lhs if b.direction == PUSH else rhs
+        side[b.channel_id] = scalar.mul(LEVEL, side[b.channel_id], v)
+    for c in range(system.n_channels):
+        if lhs[c] != rhs[c]:
+            raise ValueError(f"channel {c} is not balanced")
+
+
+def _gpa_instances(system: ConstraintSystem, flush_oracles):
+    """[(oracle id, "flush" | "nonzero", flush)], descending by n_vars,
+    flushes before non-zero claims at equal size."""
+    inst = [(oid, "flush", f) for f, oid in flush_oracles]
+    inst += [(nz.oracle_id, "nonzero", None) for nz in system.non_zero_claims]
+    inst.sort(key=lambda t: -system.oracles[t[0]].n_vars)
+    return inst
+
+
+def _gpa_prove(system, witness, boundaries, transcript) -> list:
+    """The grand-product phase's prover; returns its evaluation claims.
+    The inputs of each size group are one B128 stack
+    (`witness.materialize_stack`, not cached) and one product tree; the
+    products cross to the host in one copy."""
+    if not (system.flushes or system.non_zero_claims):
+        return []
+    alpha = transcript.sample_scalar(LEVEL)
+    beta = transcript.sample_scalar(LEVEL)
+    instances = _gpa_instances(system, _make_flush_oracles(system, alpha, beta))
+    groups: list = []   # [(n_vars, oracle ids)], runs of equal n_vars
+    for oid, _, _ in instances:
+        n = system.oracles[oid].n_vars
+        if groups and groups[-1][0] == n:
+            groups[-1][1].append(oid)
+        else:
+            groups.append((n, [oid]))
+    wits = [gkr_gpa.GrandProductWitness.compute(
+        n, witness_mod.materialize_stack(system.oracles, witness, oids)) for n, oids in groups]
+    products = tower.to_ints(LEVEL, torch.cat([w.layers[0][:, 0] for w in wits]))
+    claims, flush_products = [], []
+    msg = transcript.message()
+    for (oid, kind, f), p in zip(instances, products):
+        if kind == "flush" and p == 0:
+            raise ValueError("zero flush product (table row collides with challenge)")
+        msg.write_scalar(LEVEL, p)
+        claims.append(gkr_gpa.GrandProductClaim(system.oracles[oid].n_vars, p))
+        if kind == "flush":
+            flush_products.append(((f, oid), p))
+    _check_channel_balance(system, boundaries, flush_products, alpha, beta)
+    out = gkr_gpa.batch_prove(claims, wits, transcript)
+    return [evalcheck.EvalcheckClaim(oid, tuple(pt), ev)
+            for (oid, _, _), pt, ev in zip(instances, out.eval_points, out.evals)]
+
+
+def _gpa_verify(system, boundaries, transcript) -> list:
+    if not (system.flushes or system.non_zero_claims):
+        return []
+    alpha = transcript.sample_scalar(LEVEL)
+    beta = transcript.sample_scalar(LEVEL)
+    instances = _gpa_instances(system, _make_flush_oracles(system, alpha, beta))
+    r = transcript.message()
+    claims, flush_products = [], []
+    for oid, kind, f in instances:
+        p = r.read_scalar(LEVEL)
+        if kind == "nonzero" and p == 0:
+            raise ValueError(f"non-zero claim on oracle {oid} failed")
+        claims.append(gkr_gpa.GrandProductClaim(system.oracles[oid].n_vars, p))
+        if kind == "flush":
+            flush_products.append(((f, oid), p))
+    _check_channel_balance(system, boundaries, flush_products, alpha, beta)
+    out = gkr_gpa.batch_verify(claims, transcript)
+    return [evalcheck.EvalcheckClaim(oid, tuple(pt), ev)
+            for (oid, _, _), pt, ev in zip(instances, out.eval_points, out.evals)]
 
 
 def _ring_switch_claims(system, layout, committed_claims):
@@ -180,15 +318,23 @@ def _ring_switch_claims(system, layout, committed_claims):
 
 
 def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
-          log_inv_rate: int = 1, device=None) -> bytes:
+          log_inv_rate: int = 1, table_sizes: list = None, device=None) -> bytes:
     """witness: oracle id -> (level, tensor) for the committed and virtual
     oracles (`m3.builder.witness.WitnessIndex.to_core_witness`). Runs on
-    CUDA unless `device` names another; the witness moves there."""
-    _refuse_unported(system, boundaries)
+    CUDA unless `device` names another; the witness moves there.
+    `boundaries`: the statement's channel boundaries; `table_sizes`: the
+    M3 tables' row counts, written as the proof's first message (the M3
+    verifier reads them back, `peek_table_sizes`)."""
     dev = resolve(device)
     timer = _PhaseTimer(dev)
     transcript = ProverTranscript()
-    _observe_setup(transcript, system)
+    _observe_setup(transcript, system, boundaries)
+    if table_sizes is not None:
+        w = transcript.message()
+        w.write_u64(len(table_sizes))
+        for size in table_sizes:
+            w.write_u64(size)
+    system = _working_copy(system)
     witness = {oid: (lvl, d.to(dev)) for oid, (lvl, d) in witness.items()}
 
     timer.phase("exp")   # the layer witnesses and result columns, which the commit needs
@@ -214,6 +360,9 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
     timer.phase("exp")
     ec_exp = exp_mod.prove_phase(system, witness, exp_witnesses, transcript)
 
+    timer.phase("gpa")
+    ec_gpa = _gpa_prove(system, witness, boundaries, transcript)
+
     timer.phase("zerocheck")
     skip = _zerocheck_skip(system)
     if skip > 0:
@@ -226,7 +375,7 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
         out = zc.batch_prove(claims, [[tower.resolve_p1(*witness[oid]) for oid in s.oracle_ids]
                                       for s in sets], transcript, order_high=False)
         ec_claims = _to_evalcheck_claims(sets, out, False)
-    ec_claims += ec_exp
+    ec_claims += ec_gpa + ec_exp
 
     timer.phase("evalcheck")
     committed_claims = evalcheck.prove(system.oracles, witness, ec_claims, transcript)
@@ -244,18 +393,29 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
     return proof
 
 
+def peek_table_sizes(proof: bytes) -> list[int]:
+    """The table sizes a proof made with `table_sizes` starts with."""
+    r = VerifierTranscript(proof).message()
+    return [r.read_u64() for _ in range(r.read_u64())]
+
+
 def verify(system: ConstraintSystem, proof: bytes, boundaries: list = (),
-           log_inv_rate: int = 1, device=None) -> None:
+           log_inv_rate: int = 1, table_sizes: list = None, device=None) -> None:
     """Raises ValueError (or EOFError on a short proof) unless the proof
     verifies. Host code, but for the ring switch's transparents, which
     evaluate batched on `device` (CUDA unless named)."""
-    _refuse_unported(system, boundaries)
     transcript = VerifierTranscript(proof)
-    _observe_setup(transcript, system)
+    _observe_setup(transcript, system, boundaries)
+    if table_sizes is not None:
+        r = transcript.message()
+        if [r.read_u64() for _ in range(r.read_u64())] != list(table_sizes):
+            raise ValueError("table sizes in proof do not match the instance")
+    system = _working_copy(system)
     layout = CommitLayout.from_system(system)
     fri_params = make_fri_params(layout.commit_meta, log_inv_rate)
     commitment = transcript.message().read_bytes(32)
     ec_exp = exp_mod.verify_phase(system, transcript)
+    ec_gpa = _gpa_verify(system, boundaries, transcript)
 
     skip = _zerocheck_skip(system)
     if skip > 0:
@@ -265,7 +425,7 @@ def verify(system: ConstraintSystem, proof: bytes, boundaries: list = (),
         sets, claims = _zerocheck_claims(system)
         ec_claims = _to_evalcheck_claims(
             sets, zc.batch_verify(claims, transcript, order_high=False), False)
-    ec_claims += ec_exp
+    ec_claims += ec_gpa + ec_exp
 
     committed_claims = evalcheck.verify(system.oracles, ec_claims, transcript)
     rs_claims = _ring_switch_claims(system, layout, committed_claims)

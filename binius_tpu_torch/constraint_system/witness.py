@@ -2,12 +2,14 @@
 
 The port of `binius_tpu/constraint_system/witness.py`. A witness is a
 dict: oracle id -> (tower level, tensor), B1 columns bit-packed
-(`tower.P1`) where they are long enough. Ported kinds: transparent,
-repeating, linear combination, shifted and composite oracles (an XOR of
-bit-packed B1 columns and a shift of one within 32- or 64-bit blocks
-work on the packed words); packed,
-projected and zero-padded oracles raise `NotImplementedError` (no u32_add
-system reaches them).
+(`tower.P1`) where they are long enough. Ported kinds: transparent
+(constants, patterns, step-down masks, structured columns), repeating,
+linear combination, shifted and composite oracles (an XOR of bit-packed
+B1 columns and a shift of one within 32- or 64-bit blocks work on the
+packed words); packed, projected and zero-padded oracles raise
+`NotImplementedError` (no ported circuit reaches them).
+`materialize_stack` computes the values of many oracles of one size as
+one B128 stack without caching them (the grand-product inputs).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..fields import tower
+from ..math.arith import ArithExpr
 from ..protocols import shift_ind
 from . import oracle as om
 
@@ -119,4 +122,56 @@ def materialize(oracles: om.OracleSet, witness: dict, oid: int):
     else:
         raise KeyError(f"cannot materialize oracle {oid} ({o.variant})")
     witness[oid] = tower.maybe_pack_b1(*out)
+    return out
+
+
+def _as_expression(oracles: om.OracleSet, oid: int):
+    """(expression over var(i) = inner i, inner oracle ids) of an oracle:
+    a composite's own, a linear combination's offset + sum c_i * var(i),
+    any other oracle var(0) over itself."""
+    o = oracles[oid]
+    if o.variant == om.COMPOSITE:
+        return getattr(o.composite, "expr", o.composite), o.inner
+    if o.variant == om.LINEAR_COMBINATION:
+        e = ArithExpr.const(o.lc_offset, 7)
+        for i, c in enumerate(o.lc_coeffs):
+            e = e + ArithExpr.const(c, 7) * ArithExpr.var(i)
+        return e, o.inner
+    return ArithExpr.var(0), (oid,)
+
+
+def materialize_stack(oracles: om.OracleSet, witness: dict, oids: list) -> torch.Tensor:
+    """The (m, 2^n, 4) B128 values of m oracles of n variables, which are
+    not cached into `witness` (their inner oracles are). Oracles whose
+    expressions have one shape (`sumcheck.prove.compact_compositions`:
+    the flush oracles of one width and selector count share alpha, beta
+    and the expression) evaluate as one expression over a gather of their
+    inner columns, in chunks of members within the sumcheck's
+    `STACKED_CHUNK_ELEMS`."""
+    from ..protocols.sumcheck.prove import STACKED_CHUNK_ELEMS, _stack, compact_compositions
+
+    n = oracles[oids[0]].n_vars
+    assert all(oracles[oid].n_vars == n for oid in oids)
+    specs = [_as_expression(oracles, oid) for oid in oids]
+    groups: dict = {}
+    for i, ((cexpr, used), (_, inner)) in enumerate(zip(
+            compact_compositions([e for e, _ in specs]), specs)):
+        groups.setdefault(cexpr, []).append((i, tuple(inner[u] for u in used)))
+    dev = _device(witness)
+    out = torch.empty((len(oids), 1 << n, 4), dtype=torch.int32, device=dev)
+    for cexpr, members in groups.items():
+        r = len(members[0][1])
+        per = max(1, STACKED_CHUNK_ELEMS // (max(r, 1) << n))
+        for c0 in range(0, len(members), per):
+            chunk = members[c0:c0 + per]
+            ids = list(dict.fromkeys(i for _, inner in chunk for i in inner))
+            for i in ids:
+                materialize(oracles, witness, i)
+            pos = {i: p for p, i in enumerate(ids)}
+            rows = _stack([witness[i] for i in ids], n)
+            sub = rows[torch.tensor([[pos[i] for i in inner] for _, inner in chunk],
+                                    dtype=torch.long, device=dev)]
+            vals = cexpr.evaluate(LEVEL, [sub[:, k] for k in range(r)])
+            idx = torch.tensor([i for i, _ in chunk], dtype=torch.long, device=dev)
+            out[idx] = vals.expand(len(chunk), 1 << n, 4)
     return out

@@ -1,16 +1,21 @@
 """M3 table builder: typed columns over the core constraint system.
 
-The port of the part of `binius_tpu/m3/builder/table.py` that tables
-without channels need: tables own committed, shifted, computed, constant,
-fixed and exponent columns and zero constraints, and `compile` lowers them
-to the core `ConstraintSystem` with its sizeless symbolic form (whose
-canonical digest the proof observes first). A computed column lowers to a
-linear combination oracle when its expression is linear and to a
+The port of `binius_tpu/m3/builder/table.py`: tables own committed,
+shifted, computed, constant, fixed, structured and exponent columns, zero
+constraints, channel flushes (push and pull, with a multiplicity and a
+selector column), non-zero columns and a size spec (arbitrary, power of
+two, or fixed), and `compile_sizes` lowers them for given row counts to
+the core `ConstraintSystem` with its sizeless symbolic form (whose
+canonical digest the proof observes first). A computed column lowers to
+a linear combination oracle when its expression is linear and to a
 composite one otherwise; a constant or fixed column to a one-row
-transparent repeated over the rows; an exponent column (static or dynamic
-base) to a committed oracle that the prover fills, and an `Exp` record.
-The JAX builder's other column kinds (packed, selected, structured),
-flushes, non-zero columns and size specs are not ported.
+transparent repeated over the rows; a structured column to a
+`StructuredArith` transparent of the row index's bits; an exponent
+column (static or dynamic base) to a committed oracle that the prover
+fills, and an `Exp` record. A table whose size spec is arbitrary gets a
+`StepDown` selector on every flush, appended after the symbolic oracles,
+so that its padding rows stay out of the channels. The JAX builder's
+packed and selected columns are not ported.
 
 A column with 2^v values per row becomes an oracle with log_rows + v
 variables; the value index takes the LOW v bits, the row index the high
@@ -24,9 +29,10 @@ import dataclasses
 from ...constraint_system import canonical as canon
 from ...constraint_system import oracle as om
 from ...constraint_system.exp import Exp
-from ...constraint_system.system import ConstraintSet, ConstraintSystem
+from ...constraint_system.system import (PULL, PUSH, ConstraintSet, ConstraintSystem, Flush,
+                                         NonZeroClaim)
 from ...math.arith import ArithExpr
-from ...protocols.transparent import Constant, MLEFromValues
+from ...protocols.transparent import Constant, MLEFromValues, StepDown, StructuredArith
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +50,10 @@ class Col:
 class _ColumnDef:
     col: Col
     kind: str                   # committed | shifted | computed | constant | fixed
-                                # | static_exp | dynamic_exp
-    inner: object = None        # shifted: the inner Col; computed: the ArithExpr;
-                                # fixed: the pattern; dynamic_exp: the base Col
+                                # | structured | static_exp | dynamic_exp
+    inner: object = None        # shifted: the inner Col; computed and structured:
+                                # the ArithExpr; fixed: the pattern; dynamic_exp:
+                                # the base Col
     shift_offset: int = 0
     shift_block_bits: int = 0
     shift_variant: str = ""
@@ -61,6 +68,25 @@ class TableBuilder:
         self.name = name
         self.columns: list[_ColumnDef] = []
         self.zero_constraints: list = []   # (name, log_vpr, expr, cols, steps)
+        self.flushes: list = []            # (channel, direction, cols, multiplicity, selector)
+        self.fixed_log_rows: int | None = None
+        self.size_spec: str = "arbitrary"  # arbitrary | po2 | fixed
+        self.nonzero_cols: list = []
+
+    def assert_nonzero(self, col: Col) -> None:
+        """The column must be non-zero in every row (proven by the
+        grand-product phase)."""
+        assert col.log_values_per_row == 0
+        self.nonzero_cols.append(col)
+
+    def require_power_of_two_size(self) -> None:
+        self.size_spec = "po2"
+
+    def require_fixed_size(self, log_rows: int) -> None:
+        """Pin the table to exactly 2^log_rows rows (an indexed lookup
+        table)."""
+        self.fixed_log_rows = log_rows
+        self.size_spec = "fixed"
 
     def _new_col(self, level, log_vpr, name) -> Col:
         return Col(self.table_id, len(self.columns), level, log_vpr, name)
@@ -101,6 +127,14 @@ class TableBuilder:
         self.columns.append(_ColumnDef(c, "fixed", inner=tuple(int(v) for v in pattern)))
         return c
 
+    def add_structured(self, name: str, level: int, expr: ArithExpr) -> Col:
+        """A column whose value at row r is `expr` on the bits of r (var i =
+        bit i, LSB first); `expr` must be multilinear. Variables beyond the
+        compiled table's log_rows are bound to zero."""
+        c = self._new_col(level, 0, name)
+        self.columns.append(_ColumnDef(c, "structured", inner=expr))
+        return c
+
     def add_static_exp(self, name: str, bit_cols: list, base: int, base_level: int) -> Col:
         """A committed column equal to base^(the exponent whose bits, LSB
         first, are the B1 `bit_cols`), proven by the GKR exponentiation
@@ -134,9 +168,26 @@ class TableBuilder:
         assert all(c.log_values_per_row == vpr for c in cols)
         self.zero_constraints.append((name, vpr, expr, tuple(cols), canon.circuit_steps(expr)))
 
+    def _check_flush(self, cols: list, selector) -> None:
+        """A flush's columns share one values-per-row (every value of every
+        row goes to the channel), and so does its selector."""
+        vpr = cols[0].log_values_per_row
+        assert all(c.log_values_per_row == vpr for c in cols), \
+            "flush columns must share one values-per-row"
+        assert selector is None or selector.log_values_per_row == vpr, \
+            "flush selector must match the columns' values-per-row"
+
+    def push(self, channel_id: int, cols: list, multiplicity: int = 1, selector=None) -> None:
+        self._check_flush(cols, selector)
+        self.flushes.append((channel_id, PUSH, tuple(cols), multiplicity, selector))
+
+    def pull(self, channel_id: int, cols: list, multiplicity: int = 1, selector=None) -> None:
+        self._check_flush(cols, selector)
+        self.flushes.append((channel_id, PULL, tuple(cols), multiplicity, selector))
+
 
 class M3ConstraintSystem:
-    """Top-level builder: tables."""
+    """Top-level builder: tables and channels."""
 
     def __init__(self):
         self.tables: list[TableBuilder] = []
@@ -147,17 +198,47 @@ class M3ConstraintSystem:
         self.tables.append(t)
         return t
 
+    def add_channel(self) -> int:
+        c = self.n_channels
+        self.n_channels += 1
+        return c
+
     def compile(self, table_log_rows: list[int]):
-        """Lower with power-of-two row counts. Returns (ConstraintSystem,
-        oracle_map), oracle_map[(table_id, col_index)] = oracle id."""
+        """Lower with power-of-two row counts (`compile_sizes` of 2^each)."""
+        return self.compile_sizes([1 << lr for lr in table_log_rows])
+
+    def compile_sizes(self, table_sizes: list[int]):
+        """Lower for the given table row counts. Returns (ConstraintSystem,
+        oracle_map), oracle_map[(table_id, col_index)] = oracle id.
+
+        Oracles take the power-of-two capacity of their table's size. Every
+        flush of a table of arbitrary size spec gets that table's StepDown
+        selector, even at a power-of-two size (the mask is then all ones),
+        as the reference does; zero constraints hold over the whole
+        capacity (the gadgets pad with rows that satisfy them)."""
+        assert len(table_sizes) == len(self.tables)
+        table_log_rows = []
+        for t, size in zip(self.tables, table_sizes):
+            assert size >= 0
+            log_cap = max(0, (size - 1).bit_length())
+            if t.size_spec == "fixed":
+                assert size == 1 << t.fixed_log_rows, \
+                    f"table {t.name} requires exactly 2^{t.fixed_log_rows} rows"
+            elif t.size_spec == "po2":
+                assert size == 1 << log_cap, f"table {t.name} requires a power-of-two size"
+            assert size == 1 << log_cap or not t.nonzero_cols, \
+                "non-zero claims need a power-of-two table (padding rows are 0)"
+            table_log_rows.append(log_cap)
         oracles = om.OracleSet()
         oracle_map: dict = {}
         constraint_sets = []
         exponents = []
+        non_zero_claims = []
         sym_oracles: list = []
         sym_csets: list = []
+        sym_flushes: list = []
         sym_exps: list = []
-        assert len(table_log_rows) == len(self.tables)
+        pending_flushes: list = []  # (table, channel, direction, ids, mult, sel ids, vpr, step-down)
         for t_idx, (t, log_rows) in enumerate(zip(self.tables, table_log_rows)):
             def rec(name, vpr, level, variant):
                 sym_oracles.append(canon.SymbolicOracle(name, t_idx, vpr, level, variant))
@@ -208,6 +289,12 @@ class M3ConstraintSystem:
                         (("vec_f128", cd.inner),)))
                     oracle_map[key] = oracles.add_repeating(tid, log_rows, nm)
                     rec(nm, vpr, col.level, ("repeating", tid))
+                elif cd.kind == "structured":
+                    tp = StructuredArith(_bind_high_vars_zero(cd.inner, n_vars), n_vars,
+                                         col.level)
+                    oracle_map[key] = oracles.add_transparent(tp, nm)
+                    # sizeless: the circuit before binding
+                    rec(nm, vpr, col.level, ("structured", canon.circuit_steps(cd.inner)))
                 elif cd.kind in ("static_exp", "dynamic_exp"):
                     # the oracle in declaration order; its Exp record comes
                     # with its partition below
@@ -217,9 +304,9 @@ class M3ConstraintSystem:
                     raise NotImplementedError(f"{cd.kind} columns are not ported")
 
             # per partition, ascending values-per-row: the Exp records of its
-            # exponent columns in declaration order, then one constraint set
-            # of the used columns in declaration order, the constraints in
-            # call order
+            # exponent columns in declaration order, its flushes in call
+            # order, then one constraint set of the used columns in
+            # declaration order, the constraints in call order
             for vpr in sorted({c.col.log_values_per_row for c in t.columns}):
                 for cd in t.columns:
                     if (cd.col.log_values_per_row != vpr
@@ -236,6 +323,17 @@ class M3ConstraintSystem:
                         exponents.append(Exp(bits_ids, res_id, cd.col.level, base_oracle=base_id))
                         base = ("oracle", base_id)
                     sym_exps.append(canon.SymbolicExp(bits_ids, base, res_id))
+                for channel_id, direction, cols, mult, selector in t.flushes:
+                    if cols[0].log_values_per_row != vpr:
+                        continue
+                    sel_ids = ((oracle_map[(t.table_id, selector.index)],)
+                               if selector is not None else ())
+                    ids = tuple(oracle_map[(t.table_id, c.index)] for c in cols)
+                    pending_flushes.append((t_idx, channel_id, direction, ids, mult, sel_ids,
+                                            vpr, t.size_spec not in ("fixed", "po2")))
+                    sym_flushes.append(canon.SymbolicFlush(
+                        t_idx, vpr, tuple(("oracle", i) for i in ids), channel_id, direction,
+                        sel_ids, mult))
                 entries = [(name, expr, cols, steps)
                            for name, c_vpr, expr, cols, steps in t.zero_constraints
                            if c_vpr == vpr]
@@ -259,11 +357,49 @@ class M3ConstraintSystem:
                 constraint_sets.append(ConstraintSet(log_rows + vpr, ids, tuple(exprs)))
                 sym_csets.append(canon.SymbolicConstraintSet(t_idx, vpr, ids,
                                                              tuple(sym_constraints)))
+            # non-zero claims in column declaration order
+            for c in sorted(t.nonzero_cols, key=lambda c: c.index):
+                non_zero_claims.append(NonZeroClaim(oracle_map[(t.table_id, c.index)]))
+
+        # the step-down selectors, one per (table, values-per-row), after
+        # every symbolic oracle: the sizeless description stays a prefix of
+        # the oracle set. A multi-value flush's rows are runs of 2^vpr
+        # values, so StepDown(log_rows + vpr, size << vpr) covers `size` rows.
+        step_down_ids: dict = {}
+        flushes = []
+        for t_idx, channel_id, direction, ids, mult, sel_ids, vpr, needs_sd in pending_flushes:
+            if needs_sd:
+                if (t_idx, vpr) not in step_down_ids:
+                    t = self.tables[t_idx]
+                    step_down_ids[(t_idx, vpr)] = oracles.add_transparent(
+                        StepDown(table_log_rows[t_idx] + vpr, table_sizes[t_idx] << vpr),
+                        f"{t.name}.stepdown{vpr}")
+                sel_ids = sel_ids + (step_down_ids[(t_idx, vpr)],)
+            flushes.append(Flush(channel_id, direction, ids, mult, sel_ids))
+
+        specs = tuple(("fixed", t.fixed_log_rows) if t.size_spec == "fixed" else (t.size_spec,)
+                      for t in self.tables)
         symbolic = canon.SymbolicSystem(
-            tuple(sym_oracles), tuple(sym_csets), (), (), tuple(sym_exps), self.n_channels,
-            tuple(("arbitrary",) for _ in self.tables))
-        return ConstraintSystem(oracles, constraint_sets, [], self.n_channels, [],
-                                exponents, symbolic=symbolic), oracle_map
+            tuple(sym_oracles), tuple(sym_csets), tuple(nz.oracle_id for nz in non_zero_claims),
+            tuple(sym_flushes), tuple(sym_exps), self.n_channels, specs)
+        return ConstraintSystem(oracles, constraint_sets, flushes, self.n_channels,
+                                non_zero_claims, exponents, symbolic=symbolic), oracle_map
+
+
+def _bind_high_vars_zero(expr: ArithExpr, n_vars: int) -> ArithExpr:
+    """`expr` with var(i >= n_vars) replaced by the constant 0 (a structured
+    column is defined for a largest size; a smaller table has no such
+    index bits)."""
+    if expr.op == "var":
+        return ArithExpr.const(0) if expr.value >= n_vars else expr
+    if expr.op == "const":
+        return expr
+    args = tuple(_bind_high_vars_zero(a, n_vars) for a in expr.args)
+    if expr.op == "add":
+        return args[0] + args[1]
+    if expr.op == "mul":
+        return args[0] * args[1]
+    return ArithExpr("pow", args, expr.value)
 
 
 def _linearize(expr: ArithExpr, n_vars: int):

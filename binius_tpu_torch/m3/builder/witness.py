@@ -1,12 +1,13 @@
 """M3 witness index: host column buffers lowered to a device witness.
 
-The port of `binius_tpu/m3/builder/witness.py` for power-of-two tables
-(numpy in place of the JAX module's arrays): the user fills committed
-columns, with typed helpers for bit-packed integers, and
-`to_core_witness` puts them on the device, computes the exponent columns
-(`constraint_system.exp.make_exp_witnesses`) and materializes every
-virtual column (shifted, computed, constant, fixed) from its oracle's
-definition.
+The port of `binius_tpu/m3/builder/witness.py` (numpy in place of the JAX
+module's arrays): the user fills committed columns, with typed helpers
+for bit-packed integers, and `to_core_witness` puts them on the device,
+computes the exponent columns (`constraint_system.exp.make_exp_witnesses`)
+and materializes every virtual column (shifted, computed, constant,
+fixed, structured) from its oracle's definition. A table of any row
+count (`WitnessIndex.with_sizes`) takes `size` rows of each column, or
+its whole power-of-two capacity, and pads the rest with zero rows.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ from ...fields import tower
 
 
 class TableWitness:
-    def __init__(self, table, log_rows: int):
+    def __init__(self, table, log_rows: int, size: int = None):
         self.table = table
-        self.log_rows = log_rows
+        self.log_rows = log_rows  # log2 of the power-of-two capacity
+        self.size = (1 << log_rows) if size is None else size
         self.columns: dict = {}  # col index -> numpy array of 2^log_rows << vpr values
         self.words: dict = {}    # col index -> uint32 P1 words of a B1 column
 
@@ -29,12 +31,18 @@ class TableWitness:
     def n_rows(self) -> int:
         return 1 << self.log_rows
 
+    def _pad(self, values: np.ndarray, per_row: int) -> np.ndarray:
+        """`size` or all rows of `per_row` values; zero rows pad to the
+        capacity."""
+        full = self.n_rows * per_row
+        assert values.shape[0] in (self.size * per_row, full), (values.shape, full)
+        return np.pad(values, (0, full - values.shape[0])) if values.shape[0] < full else values
+
     def set_column(self, col, values) -> None:
-        """All 2^log_rows rows of a column's values (numpy or a list), 2^v
-        values per row, row-major."""
-        values = np.asarray(values)
-        assert values.shape[0] == self.n_rows << col.log_values_per_row, values.shape
-        self.columns[col.index] = values
+        """A column's values (numpy or a list), 2^v values per row,
+        row-major: `size` rows, zero-padded to the capacity, or all of
+        them."""
+        self.columns[col.index] = self._pad(np.asarray(values), 1 << col.log_values_per_row)
         self.words.pop(col.index, None)
 
     def set_packed_ints(self, col, row_values) -> None:
@@ -43,8 +51,7 @@ class TableWitness:
         assert col.level == 0
         w = 1 << col.log_values_per_row
         assert w <= 64
-        a = np.asarray(row_values, dtype=np.uint64)
-        assert a.shape[0] == self.n_rows
+        a = self._pad(np.asarray(row_values, dtype=np.uint64), 1)
         if w in (32, 64) and (self.n_rows * w) >> tower.P1_MIN_VARS:
             # one row's values are one or two whole words (little-endian):
             # keep the P1 words
@@ -79,7 +86,19 @@ class WitnessIndex:
     def __init__(self, m3_system, table_log_rows: list):
         self.system = m3_system
         self.table_log_rows = list(table_log_rows)
+        self.table_sizes = [1 << lr for lr in table_log_rows]
         self.tables = [TableWitness(t, lr) for t, lr in zip(m3_system.tables, table_log_rows)]
+
+    @classmethod
+    def with_sizes(cls, m3_system, table_sizes: list) -> "WitnessIndex":
+        """Tables of any row count, each padded to its power-of-two capacity."""
+        self = cls.__new__(cls)
+        self.system = m3_system
+        self.table_sizes = [int(s) for s in table_sizes]
+        self.table_log_rows = [(s - 1).bit_length() for s in self.table_sizes]
+        self.tables = [TableWitness(t, lr, s) for t, lr, s in
+                       zip(m3_system.tables, self.table_log_rows, self.table_sizes)]
+        return self
 
     def table(self, table_id: int) -> TableWitness:
         return self.tables[table_id]

@@ -101,28 +101,7 @@ class ArithExpr:
         """Evaluate over batched tensors at tower `level` (canonical layout),
         indexed by variable. Constants embed as their integers."""
         device = inputs[0].device if len(inputs) else None
-        cache: dict = {}
-
-        def rec(e: "ArithExpr"):
-            key = id(e)
-            if key in cache:
-                return cache[key]
-            if e.op == "const":
-                r = tower.full(level, (), e.value, device=device)
-            elif e.op == "var":
-                r = inputs[e.value]
-            elif e.op == "add":
-                r = rec(e.args[0]) ^ rec(e.args[1])
-            elif e.op == "mul":
-                r = tower.mul(level, rec(e.args[0]), rec(e.args[1]))
-            elif e.op == "pow":
-                r = _pow(level, rec(e.args[0]), e.value)
-            else:
-                raise AssertionError(e.op)
-            cache[key] = r
-            return r
-
-        return rec(self)
+        return _evaluate_node(self, level, inputs, {}, device)
 
     def evaluate_scalar(self, level: int, inputs: list) -> int:
         """Host evaluation on Python ints (verifier side)."""
@@ -171,6 +150,32 @@ class ArithExpr:
         for a in self.args:
             toks = toks + a.serialize_tokens()
         return toks
+
+
+def _evaluate_node(e: ArithExpr, level: int, inputs, cache: dict, device):
+    """`ArithExpr.evaluate` of one node, each shared subtree once (`cache`,
+    by node id). A module function, not a closure: a recursive closure is
+    a reference cycle, which would keep every intermediate tensor of the
+    evaluation alive until the cyclic garbage collector runs."""
+    key = id(e)
+    if key in cache:
+        return cache[key]
+    if e.op == "const":
+        r = tower.full(level, (), e.value, device=device)
+    elif e.op == "var":
+        r = inputs[e.value]
+    elif e.op == "add":
+        r = (_evaluate_node(e.args[0], level, inputs, cache, device)
+             ^ _evaluate_node(e.args[1], level, inputs, cache, device))
+    elif e.op == "mul":
+        r = tower.mul(level, _evaluate_node(e.args[0], level, inputs, cache, device),
+                      _evaluate_node(e.args[1], level, inputs, cache, device))
+    elif e.op == "pow":
+        r = _pow(level, _evaluate_node(e.args[0], level, inputs, cache, device), e.value)
+    else:
+        raise AssertionError(e.op)
+    cache[key] = r
+    return r
 
 
 def _pow(level: int, x, e: int):

@@ -10,8 +10,11 @@ high), and their reduced claims form the next wave, until only claims on
 committed oracles remain. Duplicate (oracle, point) claims are dropped
 deterministically on both sides. Per wave, the prover evaluates the
 linear combinations' inner columns in one batched evaluation per (level,
-n_vars, point) group, and both sides take the shift indicators of all
-the wave's shift claims in one stacked carry DP.
+n_vars, point) group, each run of composite claims of one expression at
+one point (the flush oracles of one size) is one stacked sumcheck prover
+(`EqStackedSumcheckProver`), and
+both sides take the shift indicators of all the wave's shift claims in
+one stacked carry DP.
 """
 
 from __future__ import annotations
@@ -230,13 +233,24 @@ class _Walker:
                         order_high=False))
                     i = j
                 else:
+                    # a run of composites of one expression at one point (the
+                    # flush oracles of one size): one stacked prover
                     o = e.oracle
+                    key = (nv, e.claim.point, o.composite, len(o.inner))
+                    j = i + 1
+                    while (j < len(specs) and specs[j][0] == "composite"
+                           and (specs[j][2], specs[j][1].claim.point, specs[j][1].oracle.composite,
+                                len(specs[j][1].oracle.inner)) == key):
+                        j += 1
+                    run = [s[1].oracle for s in specs[i:j]]
+                    ids = list(dict.fromkeys(ii for r in run for ii in r.inner))
+                    pos = {ii: p for p, ii in enumerate(ids)}
                     eq_ml = (LEVEL, self._eq_expansion(tuple(e.claim.point)))
-                    mls = [eq_ml] + [self.witness[ii] for ii in o.inner]
-                    provers.append(sc_prove.RegularSumcheckProver(
-                        claims[i], mls, order_high=False,
-                        eq_ind_challenges=tuple(e.claim.point)))
-                    i += 1
+                    provers.append(sc_prove.EqStackedSumcheckProver(
+                        claims[i:j], getattr(o.composite, "expr", o.composite),
+                        sc_prove._stack([self.witness[ii] for ii in ids] + [eq_ml], nv),
+                        [[pos[ii] for ii in r.inner] for r in run], e.claim.point))
+                    i = j
             out = sc_prove.batch_prove(provers, self.transcript)
             ml_evals, challenges = out.multilinear_evals, out.challenges
         else:

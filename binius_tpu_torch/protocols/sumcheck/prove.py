@@ -5,7 +5,10 @@ The port of `binius_tpu/protocols/sumcheck/prove.py`: `RegularSumcheckProver`
 zerocheck and the evalcheck), `BivariateSumcheckProver` (products of two
 multilinears: the PIOP and the zerocheck's univariatizing reduction),
 `BatchedBivariateSumcheckProver` (k independent product claims as one
-stack: the evalcheck's shift claims) and the rear-loaded `batch_prove`.
+stack: the evalcheck's shift claims), `EqStackedSumcheckProver` (k
+claims of one composition at one eq-indicator point as one stack: the
+grand-product layers and the evalcheck's flush composites) and the
+rear-loaded `batch_prove`.
 
 A prover holds its multilinears as one (m, 2^n, 4) B128 stack on its
 device. A round takes the two halves of the folding variable as views
@@ -314,6 +317,91 @@ class BatchedBivariateSumcheckProver(BivariateSumcheckProver):
         return [vals[2 * i:2 * i + 2] for i in range(self.n_claims)]
 
 
+# Elements of one gathered operand of `EqStackedSumcheckProver`'s round (2^26
+# B128 elements: 1 GiB); a batch of more claims runs its round in chunks of
+# claims.
+STACKED_CHUNK_ELEMS = 1 << 26
+
+
+class EqStackedSumcheckProver:
+    """Claims of one composition C over one eq-indicator point, as one
+    stack: claim j proves sum_y eq(z, y) * C(its r multilinears at y) = s_j.
+
+    `stack` (U + 1, 2^n, 4) B128 holds the distinct multilinears of the
+    batch once, then the eq expansion of `eq_point` as its last row;
+    `rows` (one tuple of r stack rows per claim) picks each claim's, and
+    `expr` is C over var(i) = the claim's i-th multilinear. A
+    round gathers the claims' rows (in chunks of claims within
+    `STACKED_CHUNK_ELEMS`), evaluates C at the domain's points over all of
+    them at once, weights each point's values by eq and XOR-reduces:
+    (claims, points) sums on the device, which `batch_prove` mixes with
+    the claims' coefficients into one round polynomial (one host read per
+    round, however many claims). `batch_prove` samples one coefficient per
+    claim and writes each claim's evaluations without the eq one, so the
+    transcript is that of one `RegularSumcheckProver` per claim over
+    [eq, its multilinears]; the eq multilinear is folded once for all."""
+
+    multi_claim = True
+    order_high = False
+
+    def __init__(self, claims: list, expr, stack: torch.Tensor, rows, eq_point):
+        nv = claims[0].n_vars
+        assert all(c.n_vars == nv for c in claims) and len(rows) == len(claims)
+        assert stack.shape[1] == 1 << nv
+        self.claims = claims
+        self.claim = claims[0]
+        self.n_claims = len(claims)
+        self.expr = expr
+        self.eq_ind_challenges = tuple(eq_point)
+        self.n_remaining = nv
+        self.stack = stack
+        self.rows = torch.tensor(rows, dtype=torch.long, device=stack.device).reshape(
+            len(rows), -1)
+        self.domain = EvaluationDomain.from_subspace(3, claims[0].max_individual_degree() + 1)
+
+    @property
+    def n_vars(self) -> int:
+        return self.claim.n_vars
+
+    def _round_sums(self) -> torch.Tensor:
+        """(claims, points, 4): each claim's sums at the domain's points."""
+        e0, e1 = _halves(self.stack, self.n_remaining, False)
+        q0, q1 = e0[-1], e1[-1]
+        qd = q0 ^ q1
+        n_in = self.rows.shape[1]
+        per = max(1, STACKED_CHUNK_ELEMS // (n_in * q0.shape[0]))
+        out = []
+        for g0 in range(0, self.n_claims, per):
+            idx = self.rows[g0:g0 + per]
+            s0, s1 = e0[idx], e1[idx]                      # (c, r, half, 4)
+            sd = s0 ^ s1
+            sums = []
+            for x in self.domain.points:
+                if x in (0, 1):
+                    v, q = (s0, q0) if x == 0 else (s1, q1)
+                else:
+                    xs = tower.full(LEVEL, (), x, s0.device)
+                    v = s0 ^ tower.mul(LEVEL, sd, xs)
+                    q = q0 ^ tower.mul(LEVEL, qd, xs)
+                c = self.expr.evaluate(LEVEL, [v[:, i] for i in range(n_in)])
+                sums.append(tower.xor_reduce(tower.mul(LEVEL, c, q), 1))
+            out.append(torch.stack(sums, dim=1))
+        return torch.cat(out) if len(out) > 1 else out[0]
+
+    def compute_mixed_round_poly(self, weights: list[int]) -> list[int]:
+        return _interpolate_mixed(self.domain, self._round_sums(), weights)
+
+    def fold(self, challenge: int) -> None:
+        self.stack = _fold(self.stack, self.n_remaining, False, challenge)
+        self.n_remaining -= 1
+
+    def finish(self) -> list[list[int]]:
+        """Per claim, [eq evaluation, its multilinears' evaluations]."""
+        assert self.n_remaining == 0
+        vals = tower.to_ints(LEVEL, self.stack[:, 0])
+        return [[vals[-1], *(vals[r] for r in row)] for row in self.rows.tolist()]
+
+
 @dataclasses.dataclass
 class BatchSumcheckOutput:
     challenges: list         # sampled challenges, in round order
@@ -360,7 +448,8 @@ def batch_prove(provers: list, transcript) -> BatchSumcheckOutput:
     for p in provers:
         if getattr(p, "multi_claim", False):
             for evals in p.finish():
-                transcript.message().write_scalars(LEVEL, evals)
+                send = evals[1:] if p.eq_ind_challenges is not None else evals
+                transcript.message().write_scalars(LEVEL, send)
                 all_evals.append(evals)
         else:
             evals = p.finish()

@@ -71,13 +71,16 @@ def batch_verify(claims: list[SumcheckClaim], transcript, order_high: bool,
     # Final check: batched composite evaluation at the challenge point
     expected = 0
     all_evals = []
+    eq_memo: dict = {}   # claims at one eq point (a grand-product layer) share its eq
     for i, (claim, phi) in enumerate(zip(claims, batch_coeffs)):
         n_send = claim.n_multilinears - (1 if eq_ind_points[i] is not None else 0)
         evals = transcript.message().read_scalars(LEVEL, n_send)
         if eq_ind_points[i] is not None:
-            pt = claim_point(n_rounds, claim.n_vars, challenges, order_high)
-            eq_val = _eq_scalar(eq_ind_points[i], pt)
-            evals = [eq_val, *evals]
+            key = (tuple(eq_ind_points[i]), claim.n_vars)
+            if key not in eq_memo:
+                pt = claim_point(n_rounds, claim.n_vars, challenges, order_high)
+                eq_memo[key] = _eq_scalar(eq_ind_points[i], pt)
+            evals = [eq_memo[key], *evals]
         all_evals.append(evals)
         for cs in claim.composite_sums:
             expected ^= scalar.mul(LEVEL, phi, cs.composition.evaluate_scalar(LEVEL, evals))

@@ -3,15 +3,19 @@
 The port of part of `binius_tpu/protocols/transparent.py`: each polynomial
 evaluates on host ints at a point (the verifier) and materializes its
 multilinear on a device (the prover's witness). Ported: `Constant`,
-`EqIndTransparent` and `MLEFromValues` (the pattern of a fixed column);
-the JAX module's other kinds (step-down and step-up masks, structured
-arithmetic, powers, select-row, tower basis, disjoint product) wait for
-the front end's column kinds that make them.
+`EqIndTransparent`, `MLEFromValues` (the pattern of a fixed column),
+`StepDown` and `StepUp` (the padding masks of a table below its
+power-of-two capacity) and `StructuredArith` (a structured column: a
+multilinear expression of the row index's bits); the JAX module's other
+kinds (powers, select-row, tower basis, disjoint product) wait for the
+front end's column kinds that make them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from ..fields import scalar, tower
 from ..math import mle as mle_mod
@@ -74,3 +78,106 @@ class MLEFromValues:
 
     def mle(self, device=None):
         return self.level, tower.from_ints(self.level, list(self.values), device)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepDown:
+    """1 on the hypercube indices below `index`, 0 from it on: the padding
+    mask of a table of `index` rows in 2^n_vars."""
+
+    n_vars: int
+    index: int
+    level: int = 0
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        """The MLE of [i < index], walking the bits from the high end: a
+        0-bit of q where `index` has a 1 and the higher bits agree puts
+        the row below `index`."""
+        if self.index >= (1 << self.n_vars):
+            return 1
+        acc = 0
+        prefix = 1   # eq(q, index) over the bits walked so far
+        for k in reversed(range(self.n_vars)):
+            if (self.index >> k) & 1:
+                acc ^= scalar.mul(LEVEL, prefix, q[k] ^ 1)
+                prefix = scalar.mul(LEVEL, prefix, q[k])
+            else:
+                prefix = scalar.mul(LEVEL, prefix, q[k] ^ 1)
+        return acc
+
+    def mle(self, device=None):
+        rows = torch.arange(1 << self.n_vars, device=device)
+        return 0, (rows < self.index).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepUp:
+    """0 on the hypercube indices below `index`, 1 from it on."""
+
+    n_vars: int
+    index: int
+    level: int = 0
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        return 1 ^ StepDown(self.n_vars, self.index).evaluate_scalar(q)
+
+    def mle(self, device=None):
+        rows = torch.arange(1 << self.n_vars, device=device)
+        return 0, (rows >= self.index).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class StructuredArith:
+    """A structured column: its value at hypercube index i is `expr` on the
+    bits of i (var k = bit k, LSB first). The expression is multilinear,
+    so its value at any point is the MLE's: the verifier evaluates it
+    directly, and the prover materializes it over the index bits."""
+
+    expr: object  # ArithExpr over n_vars index-bit variables, multilinear
+    n_vars: int
+    level: int = 7
+
+    def __post_init__(self):
+        assert _is_multilinear(self.expr), \
+            "structured column expression must be multilinear in the index bits"
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        return self.expr.evaluate_scalar(LEVEL, list(q))
+
+    def mle(self, device=None):
+        iota = torch.arange(1 << self.n_vars, dtype=torch.int32, device=device)
+        bits = [tower.embed(0, LEVEL, (iota >> i) & 1) for i in range(self.n_vars)]
+        vals = self.expr.evaluate(LEVEL, bits)
+        if self.level < LEVEL:
+            return self.level, tower.split_to_subfield(LEVEL, self.level, vals)[..., 0]
+        return LEVEL, vals
+
+
+def _is_multilinear(expr) -> bool:
+    """Degree <= 1 in every variable (products of distinct variables are
+    multilinear)."""
+    def degrees(e) -> dict:
+        if e.op == "const":
+            return {}
+        if e.op == "var":
+            return {e.value: 1}
+        if e.op == "pow":
+            return {k: v * e.value for k, v in degrees(e.args[0]).items()}
+        left, right = degrees(e.args[0]), degrees(e.args[1])
+        out = dict(left)
+        for k, v in right.items():
+            out[k] = max(out.get(k, 0), v) if e.op == "add" else out.get(k, 0) + v
+        return out
+
+    return all(v <= 1 for v in degrees(expr).values())
+
+
+def incrementing_expr(max_size_log: int):
+    """sum_i X_i * 2^i: the structured column of the row index."""
+    from ..math.arith import ArithExpr
+
+    e = None
+    for i in range(max_size_log):
+        term = ArithExpr.var(i) * ArithExpr.const(1 << i, 7)
+        e = term if e is None else e + term
+    return e

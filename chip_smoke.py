@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive binius_tpu_torch's proofs of the reference grid's circuits
 (u32_add, b32_mul, Keccak-f, Grøstl-P, u32 multiplication through the
-GKR exponentiation phase, u32 bitwise ops; and the u32_add commit and
-opening on their own) on one NVIDIA H100 and check them.
+GKR exponentiation phase, u32 bitwise ops), of Keccak-f with chi through
+a lookup channel (the grand-product phase), and the u32_add commit and
+opening on their own, on one NVIDIA H100, and check them.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -53,8 +54,11 @@ opening on their own) on one NVIDIA H100 and check them.
    of 2^log_rows rows, then the reference grid's other circuits at their
    grid sizes: b32_mul (2^20 B32 products), keccak (2^13 Keccak-f[1600]
    permutations), groestl (2^14 Grøstl P permutations), u32_mul_gkr (2^20
-   u32 products, `MulUU32`) and bitwise_ops (2^22 rows of u32 AND, XOR
-   and OR). For each: the
+   u32 products, `MulUU32`), bitwise_ops (2^22 rows of u32 AND, XOR
+   and OR) and keccak_lookups (2^13 Keccak-f permutations with chi through
+   the bit-AND lookup channel: 600 pulls of 2^19 values and 31 flushes of
+   the 4-row table, proven through the grand-product phase; its table
+   sizes are the proof's first message). For each: the
    system's size and the commit's NTT plan; the first run's time with its
    phase split; one run with every launch counter set to 0 just before
    and read just after (K1, K2, K3, K5 and K6 each launched, K4 once per
@@ -62,10 +66,14 @@ opening on their own) on one NVIDIA H100 and check them.
    length, sha256 and peak device memory; for a system with exponents
    (u32_mul_gkr), every exponent's layer witnesses at the proof's size
    computed through K1 and through its plain version `bitslice.mul` on the
-   card, bit-equal, K1 once per layer; the port's `verify` accepts it
+   card, bit-equal, K1 once per layer; for a system with flushes
+   (keccak_lookups), the grand-product trees of its flush oracles at the
+   proof's size through K1 (one launch per layer and size group) against
+   the plain `bitslice.mul` on the card, layer by layer, bit-equal
+   (`check_gpa_layers`); the port's `verify` accepts it
    and rejects it with one byte flipped; the warm prove time (median of 3)
-   with its phase split (commit, exp, zerocheck, evalcheck, ring switch,
-   PIOP) and the verify time, the bytes equal across the runs.
+   with its phase split (commit, exp, gpa, zerocheck, evalcheck, ring
+   switch, PIOP) and the verify time, the bytes equal across the runs.
 8. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
    plain versions (on the CPU) against the kernel path, byte for byte; the
@@ -76,8 +84,11 @@ opening on their own) on one NVIDIA H100 and check them.
    2^10, keccak at 2^1 and groestl at 2^3 (seed 0) on the card against the
    JAX package's length and sha256 (`GOLDEN_CIRCUITS`), and each through
    the plain versions on the CPU against the card's bytes; u32_mul_gkr at
-   2^7 and bitwise_ops at 2^5 the same way.
-9. One JSON line for the kernels (launches: the six proofs' counted runs
+   2^7, bitwise_ops at 2^5, keccak_lookups at 2^0 and the channel systems
+   (`circuits.channel_system`: a permutation channel, boundaries,
+   selector flushes, a multiplicity lookup, a non-zero claim) the same
+   way, each proof verified.
+9. One JSON line for the kernels (launches: the seven proofs' counted runs
    together, and per proof), then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -130,6 +141,16 @@ GOLDEN_CIRCUITS = {
     "u32_mul_gkr": (7, 119056,
                     "037d26fe0103d4a1b7bd69b62f08a63ead6aab24b0cdda6d91c89718424ab7bf"),
     "bitwise_ops": (5, 7056, "b940a3424843ed12f7903164e954209c7bc6d870fcb7e37fb5da7a5d083257fa"),
+    "keccak_lookups": (0, 376904,
+                       "680bf3cfbef773ae2e8940ff0a868f6dc90e8c6737f4c73c42fef8b9d745de16"),
+    # the channel systems (`circuits.channel_system`), proven with their
+    # boundaries
+    "perm_channel": (3, 752, "2435e62d80fc9ae6663b91f96bdbda617f2844b50776a0478708b8e2fa3a0f87"),
+    "boundary": (2, 320, "dbba8fd3315d1723e4cfdecc7df64540b1c2b5f3d5c682df58640dfe3922a063"),
+    "selector_flush": (3, 1152,
+                       "af2f72581a1a880c709a5f7ba17eb205bfa201810e1b85aafc5a021ef0f120c2"),
+    "lookup_flush": (3, 1744, "8f54d62cb6c324a97fcc497a478de0c87438ecb264f6036c897a6385daee1de3"),
+    "nonzero": (3, 496, "f71e94aacb76ad26ddb9f4b2bc4c5ea29754da7098c402bb4cf332199d7b2429"),
 }
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
@@ -985,6 +1006,54 @@ def main() -> int:
             f"{t_kernel * 1e3:.1f} ms) = the plain bitslice.mul on the card "
             f"({t_plain * 1e3:.1f} ms)")
 
+    def check_gpa_layers(core, witness):
+        """The grand-product trees of the system's flush oracles (alpha and
+        beta drawn from --seed) on the card through K1, one launch per
+        layer and size group (`GrandProductWitness.compute` on each size
+        group's stack, `witness.materialize_stack`), each layer against
+        the plain `bitslice.mul` of the kernel's layer below it on the
+        card, bit-equal (in chunks of 2^24 products)."""
+        from binius_tpu_torch.constraint_system import witness as witness_mod
+        from binius_tpu_torch.protocols import gkr_gpa
+
+        rng_ab = random.Random(args.seed)
+        work = csp._working_copy(core)
+        inst = csp._gpa_instances(work, csp._make_flush_oracles(
+            work, rng_ab.getrandbits(128), rng_ab.getrandbits(128)))
+        groups = {}
+        for oid, _, _ in inst:
+            groups.setdefault(work.oracles[oid].n_vars, []).append(oid)
+        k1_total, t_kernel, t_plain = 0, 0.0, 0.0
+        for n, oids in groups.items():
+            stack = witness_mod.materialize_stack(work.oracles, dict(witness), oids)
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            w = gkr_gpa.GrandProductWitness.compute(n, stack)
+            torch.cuda.synchronize()
+            t_kernel += time.perf_counter() - t0
+            k1 = cuda_lib.launches["k1_tower_mul"]
+            if k1 != n:
+                raise AssertionError(f"gpa tree of {len(oids)} x 2^{n}: K1 launched {k1} "
+                                     f"times for {n} layers")
+            k1_total += k1
+            t0 = time.perf_counter()
+            for k in range(n, 0, -1):
+                below = w.layers[k].reshape(-1, 2, 4)
+                per = 1 << 24
+                plain = torch.cat([bitslice.mul(7, below[i:i + per, 0], below[i:i + per, 1])
+                                   for i in range(0, below.shape[0], per)])
+                if not torch.equal(plain, w.layers[k - 1].reshape(-1, 4)):
+                    raise AssertionError(f"gpa tree of {len(oids)} x 2^{n}, layer {k - 1}: "
+                                         f"K1 != plain")
+            torch.cuda.synchronize()
+            t_plain += time.perf_counter() - t0
+            del stack, w
+        log(f"gpa trees: {len(inst)} instances in size groups "
+            f"{ {f'2^{n}': len(o) for n, o in groups.items()} }, K1 ({k1_total} launches, "
+            f"{t_kernel * 1e3:.1f} ms) = the plain bitslice.mul on the card, layer by layer "
+            f"({t_plain * 1e3:.1f} ms)")
+
     def drive_proof(circuit, size):
         """Prove `circuit` at 2^size on the card: the first run's time and
         split, with the commit's codeword and every Merkle tree it builds
@@ -995,13 +1064,14 @@ def main() -> int:
         time (median of 3) with its split, the verify time, the bytes equal
         across runs. Returns the counted run's launches."""
         t0 = time.perf_counter()
-        core, witness = circuits.instance(circuit, size, args.seed, dev)
+        core, witness, stmt = circuits.instance(circuit, size, args.seed, dev)
         torch.cuda.synchronize()
         t_inst = time.perf_counter() - t0
         k4_want, plan_txt = commit_plan(core)
         log(f"proof: {circuit} 2^{size} (seed {args.seed}): {len(core.oracles)} oracles, "
             f"{len(core.oracles.committed_ids())} committed, "
             f"{sum(len(c.zero_constraints) for c in core.constraint_sets)} zero constraints, "
+            f"{len(core.flushes)} flushes, {len(core.non_zero_claims)} non-zero claims, "
             f"zerocheck skip {csp._zerocheck_skip(core)}; instance and witness on the card "
             f"{t_inst * 1e3:.1f} ms; commit NTT: {plan_txt}")
         # the first run records the commit's message and codeword and every
@@ -1021,7 +1091,7 @@ def main() -> int:
 
         fri.fri_commit, groestl_cuda.tree_levels = recording_commit, recording_tree
         t0 = time.perf_counter()
-        csp.prove(core, witness)
+        csp.prove(core, witness, **stmt)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
         fri.fri_commit, groestl_cuda.tree_levels = fri_commit, tree_levels
@@ -1051,7 +1121,7 @@ def main() -> int:
         groestl.compress_pairs_t = counted_compress
         torch.cuda.reset_peak_memory_stats()
         cuda_lib.reset_launches()
-        proof = csp.prove(core, witness)
+        proof = csp.prove(core, witness, **stmt)
         torch.cuda.synchronize()
         counts = dict(cuda_lib.launches)
         groestl.compress_pairs_t = compress_pairs_t
@@ -1074,24 +1144,26 @@ def main() -> int:
             f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         if core.exponents:
             check_exp_layers(core, witness)
+        if core.flushes or core.non_zero_claims:
+            check_gpa_layers(core, witness)
         t0 = time.perf_counter()
-        csp.verify(core, proof)
+        csp.verify(core, proof, **stmt)
         log(f"proof {circuit} verifies ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
         bad = bytearray(proof)
         bad[len(bad) // 3] ^= 1
         try:
-            csp.verify(core, bytes(bad))
+            csp.verify(core, bytes(bad), **stmt)
         except (ValueError, EOFError) as e:
             log(f"proof {circuit} with byte {len(bad) // 3} flipped: rejected ({e})")
         else:
             raise AssertionError(f"{circuit}: a proof with a flipped byte was accepted")
-        names = ("total", "commit", "exp", "zerocheck", "evalcheck", "ring_switch", "piop",
-                 "verify")
+        names = ("total", "commit", "exp", "gpa", "zerocheck", "evalcheck", "ring_switch",
+                 "piop", "verify")
         splits = {k: [] for k in names}
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            again = csp.prove(core, witness)
+            again = csp.prove(core, witness, **stmt)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             if again != proof:
@@ -1099,7 +1171,7 @@ def main() -> int:
             for k in names[1:-1]:
                 splits[k].append(csp.last_phase_times[k] * 1e3)
             splits["total"].append((t1 - t0) * 1e3)
-            csp.verify(core, again)
+            csp.verify(core, again, **stmt)
             splits["verify"].append((time.perf_counter() - t1) * 1e3)
         split = {k: statistics.median(v) for k, v in splits.items()}
         log("proof %s 2^%d, warm, median of 3 (ms; verify apart): %s" % (
@@ -1111,7 +1183,8 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the u32_add proof: "
                              f"{proof_launches['u32_add']}")
     phases.done("proof u32_add")
-    for circuit in ("b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops"):
+    for circuit in ("b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
+                    "keccak_lookups"):
         proof_launches[circuit] = drive_proof(circuit, circuits.GRID_SIZE[circuit])
         phases.done(f"proof {circuit}")
     for r in rows:
@@ -1139,12 +1212,12 @@ def main() -> int:
     p8 = csp.prove(core8, wit8)
     check_digest("golden 8-row proof on the card", p8, GOLDEN_PROOF_8)
     csp.verify(core8, p8)
-    core16, wit16 = circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
+    core16, wit16, _ = circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
     p16 = csp.prove(core16, wit16)
     check_digest(f"proof 2^{GOLDEN_LOG_ROWS} rows, seed {GOLDEN_SEED} on the card", p16,
                  GOLDEN_PROOF_16)
     t0 = time.perf_counter()
-    p16_cpu = csp.prove(*circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, cpu),
+    p16_cpu = csp.prove(*circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, cpu)[:2],
                         device=cpu)
     if p16_cpu != p16:
         raise AssertionError("plain-path proof differs from the kernel path")
@@ -1154,11 +1227,13 @@ def main() -> int:
     # the other circuits at small sizes: the JAX package's digests on the
     # card, and the same proofs through the plain versions on the CPU
     for circuit, (size, n_bytes, sha) in GOLDEN_CIRCUITS.items():
-        pc = csp.prove(*circuits.instance(circuit, size, 0, dev))
+        core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, dev)
+        pc = csp.prove(core_c, wit_c, **stmt_c)
         check_digest(f"{circuit} proof 2^{size}, seed 0 on the card", pc, (n_bytes, sha))
+        csp.verify(core_c, pc, **stmt_c)
         t0 = time.perf_counter()
-        core_c, wit_c = circuits.instance(circuit, size, 0, cpu)
-        if csp.prove(core_c, wit_c, device=cpu) != pc:
+        core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, cpu)
+        if csp.prove(core_c, wit_c, device=cpu, **stmt_c) != pc:
             raise AssertionError(f"{circuit}: plain-path proof differs from the kernel path")
         log(f"{circuit} proof 2^{size} through the plain versions on the CPU "
             f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")

@@ -26,15 +26,31 @@ instance helpers:
   (`binius_tpu_torch.m3.gadgets.mul.mul_inputs`);
 - `bitwise_ops`: `examples/bitwise_ops.py`'s table of 2^size rows of u32
   AND, XOR and OR, x then y from `default_rng(seed)`
-  (`binius_tpu_torch.m3.gadgets.arith.bitwise_rows`).
+  (`binius_tpu_torch.m3.gadgets.arith.bitwise_rows`);
+- `keccak_lookups`: `examples/keccak_lookups.py`'s system
+  (`KeccakLookedupCS`: 2^size Keccak-f permutations with chi through the
+  bit-AND lookup channel, and the 4-row lookup table), 25 lanes per row
+  from `random.seed(seed)`, each `random.getrandbits(64)`, table sizes
+  [2^size, 4] as the proof's first message
+  (`binius_tpu_torch.m3.gadgets.keccak.keccak_lookups_system`);
+- the channel systems of `tests/test_channels.py` and `tests/test_lookup.py`
+  on 2^size rows of B32 columns drawn from `random.Random(seed)`
+  (`binius_tpu_torch.circuits.channel_system` draws them alike):
+  `perm_channel` (a pushed, its shuffle b pulled), `boundary` (a pulled,
+  its values pushed as boundaries), `selector_flush` (a selected push
+  and a selected pull), `lookup_flush` (a table pushed with multiplicity
+  bits 1 and 2 as selectors, the reads pulled) and `nonzero` (a
+  non-zero claim on an odd column).
 
-The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`,
+The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`
+(with the boundaries or the table sizes where the instance has them),
 checked with the JAX verifier:
 
-    python scripts/port_golden_proof.py [--circuit u32_add] [--size 16] [--seed 0]
+    python scripts/port_golden_proof.py [--circuit u32_add ...] [--size 16] [--seed 0]
 
-It prints the system digest, then the proof's length and sha256 (minutes
-on a CPU, most of it compiling).
+For each circuit named it prints the system digest, then the proof's
+length and sha256 (minutes on a CPU, most of it compiling; the circuits
+named together share one process's compiled functions).
 """
 
 from __future__ import annotations
@@ -47,7 +63,105 @@ import sys
 
 # the size each circuit's golden digest is pinned at
 DEFAULT_SIZE = {"u32_add": 16, "b32_mul": 10, "keccak": 1, "groestl": 3,
-                "u32_mul_gkr": 7, "bitwise_ops": 5}
+                "u32_mul_gkr": 7, "bitwise_ops": 5, "keccak_lookups": 0,
+                "perm_channel": 3, "boundary": 2, "selector_flush": 3, "lookup_flush": 3,
+                "nonzero": 3}
+CHANNEL_SYSTEMS = ("perm_channel", "boundary", "selector_flush", "lookup_flush", "nonzero")
+
+
+def channel_system(name: str, size: int, seed: int):
+    """(core system, witness, statement keywords) of a hand-built channel
+    system of the JAX package on 2^size rows, its B32 values drawn from
+    `random.Random(seed)` in the order written here."""
+    from binius_tpu.constraint_system import oracle as om
+    from binius_tpu.constraint_system.system import (Boundary, ConstraintSystem, Flush,
+                                                     NonZeroClaim, PULL, PUSH)
+    from binius_tpu.fields import tower
+
+    rng = random.Random(seed)
+    n = 1 << size
+    oracles = om.OracleSet()
+    cols, kw = {}, {}
+
+    def commit(nm, vals):
+        cols[oracles.add_committed(size, 5, nm)] = vals
+
+    if name == "perm_channel":
+        a = [rng.getrandbits(32) for _ in range(n)]
+        b = list(a)
+        rng.shuffle(b)
+        commit("a", a)
+        commit("b", b)
+        system = ConstraintSystem(oracles, [], flushes=[Flush(0, PUSH, (0,)),
+                                                        Flush(0, PULL, (1,))], n_channels=1)
+    elif name == "boundary":
+        a = [rng.getrandbits(32) for _ in range(n)]
+        commit("a", a)
+        system = ConstraintSystem(oracles, [], flushes=[Flush(0, PULL, (0,))], n_channels=1)
+        kw["boundaries"] = [Boundary(0, PUSH, (v,)) for v in a]
+    elif name == "selector_flush":
+        a = [rng.getrandbits(32) for _ in range(n)]
+        sel = [(0b01001101 >> (r % 8)) & 1 for r in range(n)]
+        picked = [v for v, s in zip(a, sel) if s]
+        b = picked + [rng.getrandbits(32) for _ in range(n - len(picked))]
+        commit("a", a)
+        commit("sel", sel)
+        commit("b", b)
+        commit("sel_b", [1] * len(picked) + [0] * (n - len(picked)))
+        system = ConstraintSystem(oracles, [], flushes=[
+            Flush(0, PUSH, (0,), selector_ids=(1,)),
+            Flush(0, PULL, (2,), selector_ids=(3,))], n_channels=1)
+    elif name == "lookup_flush":
+        table_val = [(i * i) & 0xFF for i in range(n)]
+        while True:
+            reads = [rng.randrange(n) for _ in range(n)]
+            counts = [reads.count(i) for i in range(n)]
+            if max(counts) < 4:
+                break
+        commit("t_idx", list(range(n)))
+        commit("t_val", table_val)
+        commit("r_idx", reads)
+        commit("r_val", [table_val[i] for i in reads])
+        commit("m0", [c & 1 for c in counts])
+        commit("m1", [c >> 1 for c in counts])
+        system = ConstraintSystem(oracles, [], flushes=[
+            Flush(0, PUSH, (0, 1), multiplicity=1, selector_ids=(4,)),
+            Flush(0, PUSH, (0, 1), multiplicity=2, selector_ids=(5,)),
+            Flush(0, PULL, (2, 3))], n_channels=1)
+    elif name == "nonzero":
+        commit("a", [rng.getrandbits(32) | 1 for _ in range(n)])
+        system = ConstraintSystem(oracles, [], non_zero_claims=[NonZeroClaim(0)])
+    else:
+        raise ValueError(name)
+    return system, {oid: (5, tower.from_ints(5, v)) for oid, v in cols.items()}, kw
+
+
+def keccak_lookups(size: int, seed: int):
+    """(core system, witness, statement keywords) of examples/keccak_lookups.py's
+    system at 2^size permutations."""
+    from binius_tpu.m3.builder.table import M3ConstraintSystem
+    from binius_tpu.m3.builder.witness import WitnessIndex
+    from binius_tpu.m3.gadgets.keccak import KeccakLookedupCS
+
+    random.seed(seed)
+    n = 1 << size
+    m3 = M3ConstraintSystem()
+    cs = KeccakLookedupCS.build(m3, size)
+    sizes = cs.table_sizes(n)
+    core, omap = m3.compile_sizes(sizes)
+    wi = WitnessIndex.with_sizes(m3, sizes)
+    cs.populate(wi, [[random.getrandbits(64) for _ in range(25)] for _ in range(n)])
+    return core, wi.to_core_witness(core, omap), {"table_sizes": sizes}
+
+
+def statement(circuit: str, size: int, seed: int):
+    """(core system, witness, keywords of `prove` and `verify`) of one
+    instance: the boundaries or the table sizes where it has them."""
+    if circuit in CHANNEL_SYSTEMS:
+        return channel_system(circuit, size, seed)
+    if circuit == "keccak_lookups":
+        return keccak_lookups(size, seed)
+    return (*build(circuit, size, seed), {})
 
 
 def build(circuit: str, size: int, seed: int, variant: str = "P"):
@@ -147,12 +261,11 @@ def build(circuit: str, size: int, seed: int, variant: str = "P"):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--circuit", choices=sorted(DEFAULT_SIZE), default="u32_add")
+    ap.add_argument("--circuit", choices=sorted(DEFAULT_SIZE), nargs="+", default=["u32_add"])
     ap.add_argument("--size", "--log-rows", type=int, default=None,
                     help="log2 of the rows, products or permutations")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    size = DEFAULT_SIZE[args.circuit] if args.size is None else args.size
 
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -160,11 +273,13 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from binius_tpu.constraint_system import prove as csp
 
-    core, witness = build(args.circuit, size, args.seed)
-    print("digest", core.digest().hex(), flush=True)
-    proof = csp.prove(core, witness, log_inv_rate=1)
-    csp.verify(core, proof, log_inv_rate=1)
-    print(len(proof), hashlib.sha256(proof).hexdigest())
+    for circuit in args.circuit:
+        size = DEFAULT_SIZE[circuit] if args.size is None else args.size
+        core, witness, kw = statement(circuit, size, args.seed)
+        print(circuit, size, "digest", core.digest().hex(), flush=True)
+        proof = csp.prove(core, witness, log_inv_rate=1, **kw)
+        csp.verify(core, proof, log_inv_rate=1, **kw)
+        print(circuit, size, len(proof), hashlib.sha256(proof).hexdigest(), flush=True)
 
 
 if __name__ == "__main__":

@@ -28,9 +28,10 @@ here, each in a process of its own, in the order DIR, here, here, DIR.
 
 --proof profiles the whole proof instead (`constraint_system.prove.prove`
 on `circuits.instance(circuit, log-rows, seed)`, as `chip_smoke.py` proves
-it: u32_add, b32_mul, keccak, groestl, u32_mul_gkr or bitwise_ops,
-2^log-rows rows, products or permutations, by default the circuit's grid
-size). It first prints the
+it: u32_add, b32_mul, keccak, groestl, u32_mul_gkr, bitwise_ops or
+keccak_lookups, 2^log-rows rows, products or permutations, by default the
+circuit's grid size, with the instance's boundaries and table sizes).
+It first prints the
 warm proof's wall time and phases (median of 3) and the verify time, the
 latter also with the evalcheck's shift indicators checked one claim at a
 time where the tree stacks them; the profile then adds the device
@@ -63,7 +64,7 @@ import time
 import torch
 
 
-def warm_and_verify(csp, core, witness) -> None:
+def warm_and_verify(csp, core, witness, stmt) -> None:
     """The proof's warm wall time and phases (median of 3, after one
     warm-up), then its verify time (median of 3). Where the evalcheck
     verifier checks a wave's shift indicators as one stacked carry DP
@@ -74,12 +75,12 @@ def warm_and_verify(csp, core, witness) -> None:
 
     from binius_tpu_torch.protocols import shift_ind
 
-    proof = csp.prove(core, witness)
+    proof = csp.prove(core, witness, **stmt)
     runs = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again = csp.prove(core, witness)
+        again = csp.prove(core, witness, **stmt)
         torch.cuda.synchronize()
         runs.append(((time.perf_counter() - t0) * 1e3, dict(csp.last_phase_times)))
         if again != proof:
@@ -106,7 +107,7 @@ def warm_and_verify(csp, core, witness) -> None:
         for _ in range(3):
             spent[0] = 0.0
             t0 = time.perf_counter()
-            csp.verify(core, proof)
+            csp.verify(core, proof, **stmt)
             times.append((time.perf_counter() - t0) * 1e3)
             checks.append(spent[0] * 1e3)
         print(f"verify, shift indicators {label}, median of 3: {statistics.median(times):.3f} "
@@ -123,7 +124,7 @@ def main() -> int:
                          "the circuit's grid size with --proof)")
     ap.add_argument("--circuit", default="u32_add",
                     choices=("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr",
-                             "bitwise_ops"))
+                             "bitwise_ops", "keccak_lookups"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")
@@ -164,21 +165,25 @@ def main() -> int:
         from binius_tpu_torch.constraint_system import prove as csp
 
         what = f"{args.circuit} proof"
+        stmt = {}
         if args.circuit == "u32_add":   # as circuits.instance builds it (older trees lack it)
             from binius_tpu_torch.m3.gadgets import arith
             core, witness = arith.u32_add_system(
                 args.log_rows, *arith.u32_add_rows(args.log_rows, args.seed), dev)
         else:
             from binius_tpu_torch import circuits
-            core, witness = circuits.instance(args.circuit, args.log_rows, args.seed, dev)
+            got = circuits.instance(args.circuit, args.log_rows, args.seed, dev)
+            core, witness = got[:2]
+            if len(got) > 2:   # the statement (boundaries, table sizes), where the tree has it
+                stmt = got[2]
 
         def run():
-            proof = csp.prove(core, witness)
+            proof = csp.prove(core, witness, **stmt)
             print("phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
                                             csp.last_phase_times.items()), flush=True)
             return proof
 
-        warm_and_verify(csp, core, witness)
+        warm_and_verify(csp, core, witness, stmt)
     else:
         what = "opening"
         inst = chip_smoke.instance(args.log_rows, args.seed, dev)

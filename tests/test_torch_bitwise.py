@@ -84,7 +84,7 @@ def _flipped(witness, oid):
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_validate_witness(port, k):
     """Each output column (AND, XOR, OR) flipped violates its constraint."""
-    core, witness = port
+    core, witness, _ = port
     cs_system.validate_witness(core, dict(witness))
     out_id = core.constraint_sets[0].oracle_ids[2 + k]
     with pytest.raises(ValueError, match=f"zero constraint {k}"):

@@ -142,12 +142,14 @@ def test_phase_times_are_recorded(golden):
     xs, ys = _golden_rows()
     core, witness = arith.u32_add_system(3, xs, ys, "cpu")
     csp.prove(core, witness, device="cpu")
-    assert set(csp.last_phase_times) == {"commit", "exp", "zerocheck", "evalcheck",
+    assert set(csp.last_phase_times) == {"commit", "exp", "gpa", "zerocheck", "evalcheck",
                                          "ring_switch", "piop", "total"}
 
 
 def test_unported_phases_raise(golden):
+    """The grand-product phase, once refused, is ported: a push that no
+    pull balances is rejected as the JAX package rejects it."""
     core, witness, _ = golden
     core = csp.ConstraintSystem(core.oracles, core.constraint_sets, [Flush(0, "push", (0,))], 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="channel 0 is not balanced"):
         csp.prove(core, witness, device="cpu")
