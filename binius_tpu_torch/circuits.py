@@ -23,6 +23,15 @@ it, from inputs drawn from `seed` with the generator the example uses:
   whose `random.seed(seed)` draws the lanes `keccak_inputs` draws from
   `random.Random(seed)`); its table sizes [2^size, 4] are the proof's
   first message;
+- `sha256`: 2^size SHA-256 compressions (`m3.gadgets.sha256`,
+  `examples/sha256.py`, whose `random.seed(seed)` draws the message words
+  `sha256_inputs` draws from `random.Random(seed)`);
+- `merkle_tree`: inclusion proofs of `merkle_opened(size)` leaves in a
+  Grøstl-256 Merkle tree of 2^size leaves (`m3.gadgets.merkle_tree`,
+  `examples/merkle_tree.py`, its leaves and opened indices drawn by
+  `merkle_inputs`): the increment lookup, three nodes tables and the
+  roots table, the opened leaves and the root as boundaries; its
+  boundaries and table sizes are the statement;
 - the channel systems (`CHANNEL_SYSTEMS`, `channel_system`): the
   hand-built systems of the JAX package's channel and lookup tests on
   2^size rows: a permutation channel, boundaries, selector flushes, a
@@ -30,7 +39,10 @@ it, from inputs drawn from `seed` with the generator the example uses:
 
 `GRID_SIZE` is each circuit's size in the reference grid (the benchmark
 sizes of the upstream project's record), and keccak_lookups' at the
-keccak grid's size.
+keccak grid's size. `CARD_SIZE` holds the sizes `chip_smoke.py` proves
+the two examples outside the grid at: sha256 2^14 compressions (its
+committed columns 2^19 bits each, as keccak's at 2^13) and merkle_tree
+2^20 leaves with 2^12 opened.
 """
 
 from __future__ import annotations
@@ -38,9 +50,20 @@ from __future__ import annotations
 import random
 
 CIRCUITS = ("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
-            "keccak_lookups")
+            "keccak_lookups", "sha256", "merkle_tree")
 GRID_SIZE = {"u32_add": 22, "b32_mul": 20, "keccak": 13, "groestl": 14,
              "u32_mul_gkr": 20, "bitwise_ops": 22, "keccak_lookups": 13}
+CARD_SIZE = {"sha256": 14, "merkle_tree": 20}
+# merkle_tree: the opened leaves of a tree of 2^size leaves; the example's
+# own instance (16 leaves, 3 opened), a 64-leaf one in which every nodes
+# table has rows, and the card's
+MERKLE_OPENED = {4: 3, 6: 8, 20: 1 << 12}
+
+
+def merkle_opened(size: int) -> int:
+    """The number of opened leaves of the merkle_tree instance of 2^size
+    leaves: `MERKLE_OPENED`, else 2^(size - 8) (at least one)."""
+    return MERKLE_OPENED.get(size, 1 << max(0, size - 8))
 CHANNEL_SYSTEMS = ("perm_channel", "boundary", "selector_flush", "lookup_flush", "nonzero")
 
 
@@ -56,6 +79,13 @@ def instance(circuit: str, size: int, seed: int, device=None):
         core, witness, sizes, _ = keccak.keccak_lookups_system(
             1 << size, keccak.keccak_inputs(size, seed), device)
         return core, witness, {"table_sizes": sizes}
+    if circuit == "merkle_tree":
+        from .m3.gadgets import merkle_tree
+        leaves, opened = merkle_tree.merkle_inputs(size, merkle_opened(size), seed)
+        return merkle_tree.merkle_system(leaves, opened, device)[:3]
+    if circuit == "sha256":
+        from .m3.gadgets import sha256
+        return (*sha256.sha256_system(size, sha256.sha256_inputs(size, seed), device)[:2], {})
     return (*_grid_instance(circuit, size, seed, device), {})
 
 

@@ -3,8 +3,8 @@
 The port's copy of `binius_tpu/constraint_system/oracle.py`: Committed,
 Transparent, Shifted, LinearCombination, Repeating, Packed, ZeroPadded,
 Composite and Projected oracles, each identified by a dense integer id.
-(The port's witness materialization and evalcheck take the kinds a
-u32_add system reaches; see `constraint_system/witness.py`.)
+`constraint_system/witness.py` materializes each kind and
+`protocols/evalcheck.py` reduces claims on each.
 """
 
 from __future__ import annotations

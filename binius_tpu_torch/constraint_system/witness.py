@@ -4,10 +4,10 @@ The port of `binius_tpu/constraint_system/witness.py`. A witness is a
 dict: oracle id -> (tower level, tensor), B1 columns bit-packed
 (`tower.P1`) where they are long enough. Ported kinds: transparent
 (constants, patterns, step-down masks, structured columns), repeating,
-linear combination, shifted and composite oracles (an XOR of bit-packed
-B1 columns and a shift of one within 32- or 64-bit blocks work on the
-packed words); packed, projected and zero-padded oracles raise
-`NotImplementedError` (no ported circuit reaches them).
+linear combination, shifted, composite, packed, projected and
+zero-padded oracles (an XOR of bit-packed B1 columns and a shift of one
+within 32- or 64-bit blocks work on the packed words, and a bit-packed B1
+column packed into B32, B64 or B128 is a view of its words).
 `materialize_stack` computes the values of many oracles of one size as
 one B128 stack without caching them (the grand-product inputs).
 """
@@ -117,12 +117,54 @@ def materialize(oracles: om.OracleSet, witness: dict, oid: int):
             out = (LEVEL, expr.evaluate(
                 LEVEL, [tower.embed(ilvl, LEVEL, d) if ilvl < LEVEL else d
                         for ilvl, d in inner]))
-    elif o.variant in (om.PACKED, om.PROJECTED, om.ZERO_PADDED):
-        raise NotImplementedError(f"materializing a {o.variant} oracle is not ported")
+    elif o.variant == om.PACKED:
+        out = _packed(oracles, witness, o)
+    elif o.variant == om.PROJECTED:
+        out = _projected(oracles, witness, o)
+    elif o.variant == om.ZERO_PADDED:
+        ilvl, idata = materialize(oracles, witness, o.inner[0])
+        pad, lo = o.log_degree, o.start_index
+        hi = oracles[o.inner[0]].n_vars - lo
+        d = idata.reshape(tower.elem_shape(ilvl, (1 << hi, 1, 1 << lo)))
+        z = d.new_zeros((d.shape[0], 1 << pad, *d.shape[2:]))
+        z[:, o.nonzero_index] = d[:, 0]
+        out = (ilvl, z.reshape(tower.elem_shape(ilvl, (1 << o.n_vars,))))
     else:
         raise KeyError(f"cannot materialize oracle {oid} ({o.variant})")
     witness[oid] = tower.maybe_pack_b1(*out)
     return out
+
+
+def _packed(oracles: om.OracleSet, witness: dict, o: om.Oracle):
+    """(level, data) of a packed oracle: each run of 2^log_degree inner
+    values joined into one element of level inner + log_degree. A
+    bit-packed B1 column packed into 32, 64 or 128 bits is its own words."""
+    inner_id = o.inner[0]
+    if inner_id not in witness:
+        materialize(oracles, witness, inner_id)
+    ilvl, idata = witness[inner_id]
+    if ilvl == tower.P1 and o.tower_level >= 5:
+        return o.tower_level, idata.reshape(tower.elem_shape(o.tower_level, (1 << o.n_vars,)))
+    ilvl, idata = tower.resolve_p1(ilvl, idata)
+    coeffs = idata.reshape(tower.elem_shape(ilvl, (1 << o.n_vars, 1 << o.log_degree)))
+    return o.tower_level, tower.join_from_subfield(o.tower_level, ilvl, coeffs)
+
+
+def _projected(oracles: om.OracleSet, witness: dict, o: om.Oracle):
+    """(B128, data) of a projected oracle: the inner variables
+    [start_index, start_index + k) bound to the oracle's k values, an
+    eq-weighted sum over those variables."""
+    from ..math import mle
+
+    ilvl, idata = materialize(oracles, witness, o.inner[0])
+    nb = len(o.proj_values)
+    lo = o.start_index
+    hi = oracles[o.inner[0]].n_vars - lo - nb
+    d = idata.reshape(tower.elem_shape(ilvl, (1 << hi, 1 << nb, 1 << lo)))
+    eq = mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, list(o.proj_values),
+                                                        idata.device))
+    folded = tower.xor_reduce(tower.scale_subfield(ilvl, LEVEL, d, eq[None, :, None, :]), 1)
+    return LEVEL, folded.reshape(1 << o.n_vars, tower.n_limbs(LEVEL))
 
 
 def _as_expression(oracles: om.OracleSet, oid: int):

@@ -71,13 +71,11 @@ _ALPHA8: list | None = None
 
 def _init_fast_tables() -> None:
     global _MUL8, _ALPHA8
-    m8 = [0] * 65536
-    for a in range(256):
-        base = a << 8
-        for b in range(256):
-            m8[base | b] = _mul_recursive(3, a, b)
-    _MUL8 = m8
-    _ALPHA8 = [mul_alpha(3, v) for v in range(256)]
+    # the definition run once on all 65536 pairs: its bit operations work
+    # element-wise on numpy arrays
+    v = np.arange(256, dtype=np.int64)
+    _MUL8 = _mul_recursive(3, v[:, None], v[None, :]).reshape(-1).tolist()
+    _ALPHA8 = mul_alpha(3, v).tolist()
 
 
 def _a16(v):
@@ -129,16 +127,20 @@ def _m128(a, b, m8):
 
 
 def mul_py(level: int, a: int, b: int) -> int:
-    """Tower multiplication (defined by _mul_recursive)."""
+    """Tower multiplication (defined by _mul_recursive), of elements of
+    T_level. It runs at the smallest level whose subfield holds both: the
+    subfields embed as the integer identity and are closed under
+    multiplication."""
     if _MUL8 is None:
         _init_fast_tables()
-    if level <= 3:
+    m = a | b
+    if m < 0x100:
         return _MUL8[(a << 8) | b]
-    if level == 4:
+    if m < 0x10000:
         return _m16(a, b, _MUL8)
-    if level == 5:
+    if m < 0x100000000:
         return _m32(a, b, _MUL8)
-    if level == 6:
+    if m < 0x10000000000000000:
         return _m64(a, b, _MUL8)
     return _m128(a, b, _MUL8)
 

@@ -1,8 +1,8 @@
 """M3 table builder: typed columns over the core constraint system.
 
 The port of `binius_tpu/m3/builder/table.py`: tables own committed,
-shifted, computed, constant, fixed, structured and exponent columns, zero
-constraints, channel flushes (push and pull, with a multiplicity and a
+shifted, computed, constant, fixed, structured, exponent, packed and selected
+columns, zero constraints, channel flushes (push and pull, with a multiplicity and a
 selector column), non-zero columns and a size spec (arbitrary, power of
 two, or fixed), and `compile_sizes` lowers them for given row counts to
 the core `ConstraintSystem` with its sizeless symbolic form (whose
@@ -14,8 +14,11 @@ transparent repeated over the rows; a structured column to a
 column (static or dynamic base) to a committed oracle that the prover
 fills, and an `Exp` record. A table whose size spec is arbitrary gets a
 `StepDown` selector on every flush, appended after the symbolic oracles,
-so that its padding rows stay out of the channels. The JAX builder's
-packed and selected columns are not ported.
+so that its padding rows stay out of the channels. A packed column
+(one value per row, the row's 2^v values joined) lowers to a packed
+oracle, a selected column or block (one value, or a block of values, of
+each row) to a B128 projected oracle whose bound values are the index's
+bits.
 
 A column with 2^v values per row becomes an oracle with log_rows + v
 variables; the value index takes the LOW v bits, the row index the high
@@ -50,16 +53,19 @@ class Col:
 class _ColumnDef:
     col: Col
     kind: str                   # committed | shifted | computed | constant | fixed
-                                # | structured | static_exp | dynamic_exp
-    inner: object = None        # shifted: the inner Col; computed and structured:
-                                # the ArithExpr; fixed: the pattern; dynamic_exp:
-                                # the base Col
+                                # | structured | static_exp | dynamic_exp | packed
+                                # | selected
+    inner: object = None        # shifted, packed and selected: the inner Col;
+                                # computed and structured: the ArithExpr; fixed:
+                                # the pattern; dynamic_exp: the base Col
     shift_offset: int = 0
-    shift_block_bits: int = 0
+    shift_block_bits: int = 0   # shifted: the block bits; selected: log2 of the
+                                # values kept per row
     shift_variant: str = ""
     expr_cols: tuple = ()       # computed: the Cols of the expression's variables;
                                 # exponents: the bit Cols, LSB first
-    constant: int = 0           # constant: the value; static_exp: the base
+    constant: int = 0           # constant: the value; static_exp: the base;
+                                # selected: the block index
 
 
 class TableBuilder:
@@ -133,6 +139,31 @@ class TableBuilder:
         compiled table's log_rows are bound to zero."""
         c = self._new_col(level, 0, name)
         self.columns.append(_ColumnDef(c, "structured", inner=expr))
+        return c
+
+    def add_packed(self, name: str, inner: Col) -> Col:
+        """One value per row at level inner.level + v: the row's 2^v values
+        of `inner` joined, value 0 lowest."""
+        assert inner.log_values_per_row > 0
+        c = self._new_col(inner.level + inner.log_values_per_row, 0, name)
+        self.columns.append(_ColumnDef(c, "packed", inner=inner))
+        return c
+
+    def add_selected(self, name: str, inner: Col, index: int) -> Col:
+        """Value `index` of each row of `inner` (B128, one value per row)."""
+        assert 0 <= index < (1 << inner.log_values_per_row)
+        c = self._new_col(7, 0, name)
+        self.columns.append(_ColumnDef(c, "selected", inner=inner, constant=index))
+        return c
+
+    def add_selected_block(self, name: str, inner: Col, index: int, log_new_vpr: int) -> Col:
+        """The 2^log_new_vpr values of each row of `inner` from value index
+        index << log_new_vpr on (B128)."""
+        v = inner.log_values_per_row
+        assert log_new_vpr < v and 0 <= index < (1 << (v - log_new_vpr))
+        c = self._new_col(7, log_new_vpr, name)
+        self.columns.append(_ColumnDef(c, "selected", inner=inner, constant=index,
+                                       shift_block_bits=log_new_vpr))
         return c
 
     def add_static_exp(self, name: str, bit_cols: list, base: int, base_level: int) -> Col:
@@ -300,8 +331,21 @@ class M3ConstraintSystem:
                     # with its partition below
                     oracle_map[key] = oracles.add_committed(n_vars, col.level, nm)
                     rec(nm, vpr, col.level, ("committed",))
+                elif cd.kind == "packed":
+                    inner_id = oracle_map[(t.table_id, cd.inner.index)]
+                    log_degree = cd.inner.log_values_per_row
+                    oracle_map[key] = oracles.add_packed(inner_id, log_degree, nm)
+                    rec(nm, vpr, col.level, ("packed", inner_id, log_degree))
+                elif cd.kind == "selected":
+                    inner_id = oracle_map[(t.table_id, cd.inner.index)]
+                    nb = cd.inner.log_values_per_row - cd.shift_block_bits
+                    bits = tuple((cd.constant >> i) & 1 for i in range(nb))
+                    oracle_map[key] = oracles.add_projected(inner_id, bits, cd.shift_block_bits,
+                                                            nm)
+                    rec(nm, vpr, 7, ("projected", inner_id, bits,
+                                     ("offset", cd.shift_block_bits)))
                 else:
-                    raise NotImplementedError(f"{cd.kind} columns are not ported")
+                    raise ValueError(f"unknown column kind {cd.kind!r}")
 
             # per partition, ascending values-per-row: the Exp records of its
             # exponent columns in declaration order, its flushes in call

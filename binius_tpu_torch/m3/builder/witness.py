@@ -5,7 +5,7 @@ module's arrays): the user fills committed columns, with typed helpers
 for bit-packed integers, and `to_core_witness` puts them on the device,
 computes the exponent columns (`constraint_system.exp.make_exp_witnesses`)
 and materializes every virtual column (shifted, computed, constant,
-fixed, structured) from its oracle's definition. A table of any row
+fixed, structured, packed, selected) from its oracle's definition. A table of any row
 count (`WitnessIndex.with_sizes`) takes `size` rows of each column, or
 its whole power-of-two capacity, and pads the rest with zero rows.
 """

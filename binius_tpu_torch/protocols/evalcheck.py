@@ -2,9 +2,11 @@
 committed oracles.
 
 The port of `binius_tpu/protocols/evalcheck.py`: claims walk the oracle
-DAG; a linear combination sends its inner evaluations, a shifted or packed
-oracle spawns a bivariate sumcheck (against its shift indicator or the
-tower basis) and a composite one an eq-indicator sumcheck; each wave's
+DAG; a linear combination sends its inner evaluations, a repeating or
+projected oracle rewrites the point, a zero-padded one divides out its
+select-row term, a shifted or packed oracle spawns a bivariate sumcheck
+(against its shift indicator or the tower basis) and a composite one an
+eq-indicator sumcheck; each wave's
 sumchecks are batch-proven (`sumcheck.prove.batch_prove`, folding low to
 high), and their reduced claims form the next wave, until only claims on
 committed oracles remain. Duplicate (oracle, point) claims are dropped
@@ -157,22 +159,45 @@ class _Walker:
                 next_queue.append(EvalcheckClaim(i, claim.point, e))
         elif o.variant == om.SHIFTED:
             shift_entries.append(_ShiftEntry(claim, o))
+        elif o.variant == om.PACKED:
+            # a log_degree-variable bivariate sumcheck of the inner oracle
+            # projected at the claim's point against the tower basis
+            shift_entries.append(_ShiftEntry(claim, o, kind="packed"))
+        elif o.variant == om.PROJECTED:
+            pt = claim.point[:o.start_index] + o.proj_values + claim.point[o.start_index:]
+            next_queue.append(EvalcheckClaim(o.inner[0], pt, claim.eval))
+        elif o.variant == om.ZERO_PADDED:
+            # divide out the select-row term of the padding variables; where
+            # it vanishes, so must the evaluation
+            s, pad = o.start_index, o.log_degree
+            term = 1
+            for i, z in enumerate(claim.point[s:s + pad]):
+                term = scalar.mul(LEVEL, term, z if (o.nonzero_index >> i) & 1 else z ^ 1)
+            if term == 0:
+                if claim.eval != 0:
+                    raise ValueError(f"zero-padded oracle {o.id} eval must vanish")
+            else:
+                next_queue.append(EvalcheckClaim(
+                    o.inner[0], claim.point[:s] + claim.point[s + pad:],
+                    scalar.mul(LEVEL, claim.eval, scalar.invert(LEVEL, term))))
         elif o.variant == om.COMPOSITE:
             composite_entries.append(_CompositeEntry(claim, o))
         else:
-            raise NotImplementedError(f"evalcheck for oracle variant {o.variant} is not ported")
+            raise ValueError(f"unknown oracle variant {o.variant!r}")
 
     def _shift_pair_stack(self, entries: list[_ShiftEntry], b: int) -> torch.Tensor:
-        """(2k, 2^b, 4) B128 stack [proj_0, ind_0, proj_1, ind_1, ...] for k
-        shift entries of block bits b: each inner multilinear projected at
-        the claim's high coordinates (batched per (level, n_vars, suffix)),
-        beside its shift indicator's partial multilinear."""
+        """(2k, 2^b, 4) B128 stack [proj_0, mult_0, proj_1, mult_1, ...] for
+        k shift or packed entries of block bits b: each inner multilinear
+        projected at the claim's high coordinates (a packed oracle's whole
+        point; batched per (level, n_vars, suffix)), beside its shift
+        indicator's partial multilinear or the tower basis."""
         k = len(entries)
         groups: dict = {}
         for idx, e in enumerate(entries):
             inner = self.oracles[e.oracle.inner[0]]
             ilevel, _ = self.witness[e.oracle.inner[0]]
-            groups.setdefault((ilevel, inner.n_vars, tuple(e.claim.point[b:])), []).append(idx)
+            z_high = tuple(e.claim.point[b:]) if e.kind == "shift" else tuple(e.claim.point)
+            groups.setdefault((ilevel, inner.n_vars, z_high), []).append(idx)
         chunks, order = [], []
         for (ilevel, n, z_high), idxs in groups.items():
             stack = torch.stack([self.witness[entries[i].oracle.inner[0]][1] for i in idxs])
@@ -188,11 +213,20 @@ class _Walker:
         for pos, idx in enumerate(order):
             inv[idx] = pos
         proj_all = torch.cat(chunks)[torch.tensor(inv, dtype=torch.long, device=self.device)]
-        ind = shift_ind.partial_mle_batch(
-            [e.oracle.shift_variant for e in entries], b,
-            [e.oracle.shift_offset for e in entries],
-            [list(e.claim.point[:b]) for e in entries], self.device)
-        return torch.stack([proj_all, ind], dim=1).reshape(2 * k, 1 << b, 4)
+        mult = [None] * k
+        shifts = [i for i, e in enumerate(entries) if e.kind == "shift"]
+        if shifts:
+            ind = shift_ind.partial_mle_batch(
+                [entries[i].oracle.shift_variant for i in shifts], b,
+                [entries[i].oracle.shift_offset for i in shifts],
+                [list(entries[i].claim.point[:b]) for i in shifts], self.device)
+            for pos, i in enumerate(shifts):
+                mult[i] = ind[pos]
+        for i, e in enumerate(entries):
+            if e.kind == "packed":
+                mult[i] = tower.from_ints(LEVEL, _tower_basis_values(
+                    self.oracles[e.oracle.inner[0]].tower_level, b), self.device)
+        return torch.stack([proj_all, torch.stack(mult)], dim=1).reshape(2 * k, 1 << b, 4)
 
     def _run_sumcheck_batch(self, shift_entries, composite_entries) -> list[EvalcheckClaim]:
         """Batch-prove or verify the sumchecks of a wave's shifted and
@@ -206,7 +240,7 @@ class _Walker:
 
         claims, eq_points = [], []
         for kind, e, nv in specs:
-            if kind == "shift":
+            if kind != "composite":
                 claims.append(SumcheckClaim(
                     nv, 2, (CompositeSumClaim(bivariate_product(), e.claim.eval),)))
                 eq_points.append(None)
@@ -223,10 +257,11 @@ class _Walker:
             i = 0
             while i < len(specs):
                 kind, e, nv = specs[i]
-                if kind == "shift":
-                    # a run of shift specs of equal n_vars: one batched prover
+                if kind != "composite":
+                    # a run of shift and packed specs of equal n_vars: one
+                    # batched prover
                     j = i
-                    while j < len(specs) and specs[j][0] == "shift" and specs[j][2] == nv:
+                    while j < len(specs) and specs[j][0] != "composite" and specs[j][2] == nv:
                         j += 1
                     provers.append(sc_prove.BatchedBivariateSumcheckProver(
                         claims[i:j], self._shift_pair_stack([s[1] for s in specs[i:j]], nv),
@@ -280,10 +315,34 @@ class _Walker:
                     raise ValueError("shift indicator evaluation mismatch")
                 new_claims.append(EvalcheckClaim(o.inner[0], tuple(pt) + tuple(e.claim.point[b:]),
                                                  proj_eval))
+            elif kind == "packed":
+                proj_eval, tb_eval = evals
+                if not self.is_prover and tb_eval != _tower_basis_eval(
+                        self.oracles[o.inner[0]].tower_level, o.log_degree, pt):
+                    raise ValueError("tower basis evaluation mismatch")
+                new_claims.append(EvalcheckClaim(o.inner[0], tuple(pt) + tuple(e.claim.point),
+                                                 proj_eval))
             else:
                 for iid, ev in zip(o.inner, evals[1:]):
                     new_claims.append(EvalcheckClaim(iid, tuple(pt), ev))
         return new_claims
+
+
+def _tower_basis_values(level: int, kappa: int) -> list[int]:
+    """The basis of T_{level + kappa} over T_level as B128 ints: beta_v =
+    1 << (v * 2^level) in the canonical packing."""
+    return [1 << (v << level) for v in range(1 << kappa)]
+
+
+def _tower_basis_eval(level: int, kappa: int, pt: list[int]) -> int:
+    """The tower-basis multilinear evaluated at pt, on the host."""
+    acc = 0
+    for v, beta in enumerate(_tower_basis_values(level, kappa)):
+        term = beta
+        for i, z in enumerate(pt):
+            term = scalar.mul(LEVEL, term, z if (v >> i) & 1 else z ^ 1)
+        acc ^= term
+    return acc
 
 
 def prove(oracles: om.OracleSet, witness: dict, claims: list[EvalcheckClaim],

@@ -2,8 +2,10 @@
 """Drive binius_tpu_torch's proofs of the reference grid's circuits
 (u32_add, b32_mul, Keccak-f, Grøstl-P, u32 multiplication through the
 GKR exponentiation phase, u32 bitwise ops), of Keccak-f with chi through
-a lookup channel (the grand-product phase), and the u32_add commit and
-opening on their own, on one NVIDIA H100, and check them.
+a lookup channel (the grand-product phase), of SHA-256 compressions and
+of Merkle-tree inclusion paths (packed and selected columns), and the
+u32_add commit and opening on their own, on one NVIDIA H100, and check
+them.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -58,7 +60,13 @@ opening on their own, on one NVIDIA H100, and check them.
    and OR) and keccak_lookups (2^13 Keccak-f permutations with chi through
    the bit-AND lookup channel: 600 pulls of 2^19 values and 31 flushes of
    the 4-row table, proven through the grand-product phase; its table
-   sizes are the proof's first message). For each: the
+   sizes are the proof's first message), then the examples outside the
+   grid at `circuits.CARD_SIZE`: sha256 (2^14 SHA-256 compressions,
+   1,344 committed B1 columns of 2^19 bits) and merkle_tree (2^12 opened
+   leaves of a 2^20-leaf Grøstl-256 tree, whose levels K6 builds on the
+   card: 33,366 compressions checked in three nodes tables, through
+   packed, projected and shifted columns, with its boundaries and table
+   sizes). For each: the
    system's size and the commit's NTT plan; the first run's time with its
    phase split; one run with every launch counter set to 0 just before
    and read just after (K1, K2, K3, K5 and K6 each launched, K4 once per
@@ -84,11 +92,14 @@ opening on their own, on one NVIDIA H100, and check them.
    2^10, keccak at 2^1 and groestl at 2^3 (seed 0) on the card against the
    JAX package's length and sha256 (`GOLDEN_CIRCUITS`), and each through
    the plain versions on the CPU against the card's bytes; u32_mul_gkr at
-   2^7, bitwise_ops at 2^5, keccak_lookups at 2^0 and the channel systems
+   2^7, bitwise_ops at 2^5, keccak_lookups at 2^0, the channel systems
    (`circuits.channel_system`: a permutation channel, boundaries,
-   selector flushes, a multiplicity lookup, a non-zero claim) the same
-   way, each proof verified.
-9. One JSON line for the kernels (launches: the seven proofs' counted runs
+   selector flushes, a multiplicity lookup, a non-zero claim), sha256 at
+   2^0 and merkle_tree at the example's instance (16 leaves, 3 opened: its
+   LEFT nodes table is empty) the same way, and merkle_tree at 64 leaves
+   with 8 opened (every nodes table has rows, `GOLDEN_CARD`), each proof
+   verified.
+9. One JSON line for the kernels (launches: the nine proofs' counted runs
    together, and per proof), then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -151,6 +162,18 @@ GOLDEN_CIRCUITS = {
                        "af2f72581a1a880c709a5f7ba17eb205bfa201810e1b85aafc5a021ef0f120c2"),
     "lookup_flush": (3, 1744, "8f54d62cb6c324a97fcc497a478de0c87438ecb264f6036c897a6385daee1de3"),
     "nonzero": (3, 496, "f71e94aacb76ad26ddb9f4b2bc4c5ea29754da7098c402bb4cf332199d7b2429"),
+    # the examples outside the grid: sha256 at 2^0 compressions, merkle_tree
+    # at examples/merkle_tree.py's instance (16 leaves, 3 opened: its LEFT
+    # table is empty)
+    "sha256": (0, 294288, "3503f8885847d388cb69a0e2b33308ecdd665845a20da0b5c5a155114b428d0b"),
+    "merkle_tree": (4, 409792,
+                    "cdf69c556ed8401569641ea73d04aa9fe4dff199032d6e53b2e8b9b8f2aee6fe"),
+}
+# proven on the card and through the plain versions by this script, not by
+# the CPU tests: merkle_tree at 64 leaves with 8 opened (random.seed(0);
+# `scripts/port_golden_proof.py --circuit merkle_tree --size 6`)
+GOLDEN_CARD = {
+    "merkle_tree": (6, 413184, "09284e3c15eab83ae1cbace6d397729197e1cb9f1a006804a8e66fdc9225e02d"),
 }
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
@@ -1184,8 +1207,9 @@ def main() -> int:
                              f"{proof_launches['u32_add']}")
     phases.done("proof u32_add")
     for circuit in ("b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
-                    "keccak_lookups"):
-        proof_launches[circuit] = drive_proof(circuit, circuits.GRID_SIZE[circuit])
+                    "keccak_lookups", "sha256", "merkle_tree"):
+        size = circuits.GRID_SIZE.get(circuit) or circuits.CARD_SIZE[circuit]
+        proof_launches[circuit] = drive_proof(circuit, size)
         phases.done(f"proof {circuit}")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in proof_launches.values())
@@ -1226,7 +1250,7 @@ def main() -> int:
     phases.done("golden and plain proofs")
     # the other circuits at small sizes: the JAX package's digests on the
     # card, and the same proofs through the plain versions on the CPU
-    for circuit, (size, n_bytes, sha) in GOLDEN_CIRCUITS.items():
+    for circuit, (size, n_bytes, sha) in [*GOLDEN_CIRCUITS.items(), *GOLDEN_CARD.items()]:
         core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, dev)
         pc = csp.prove(core_c, wit_c, **stmt_c)
         check_digest(f"{circuit} proof 2^{size}, seed 0 on the card", pc, (n_bytes, sha))

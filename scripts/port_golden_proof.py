@@ -40,7 +40,16 @@ instance helpers:
   its values pushed as boundaries), `selector_flush` (a selected push
   and a selected pull), `lookup_flush` (a table pushed with multiplicity
   bits 1 and 2 as selectors, the reads pulled) and `nonzero` (a
-  non-zero claim on an odd column).
+  non-zero claim on an odd column);
+- `sha256`: `examples/sha256.py`'s table of 2^size SHA-256 compressions,
+  16 message words per row from `random.seed(seed)`, each
+  `random.getrandbits(32)`
+  (`binius_tpu_torch.m3.gadgets.sha256.sha256_inputs`);
+- `merkle_tree`: `examples/merkle_tree.py`'s inclusion proof of
+  `MERKLE_OPENED[size]` opened leaves in a tree of 2^size leaves (root id
+  7), the leaves' bytes then the opened indices drawn after
+  `random.seed(seed)` (`binius_tpu_torch.m3.gadgets.merkle_tree.merkle_inputs`),
+  with its boundaries and table sizes.
 
 The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`
 (with the boundaries or the table sizes where the instance has them),
@@ -65,7 +74,9 @@ import sys
 DEFAULT_SIZE = {"u32_add": 16, "b32_mul": 10, "keccak": 1, "groestl": 3,
                 "u32_mul_gkr": 7, "bitwise_ops": 5, "keccak_lookups": 0,
                 "perm_channel": 3, "boundary": 2, "selector_flush": 3, "lookup_flush": 3,
-                "nonzero": 3}
+                "nonzero": 3, "sha256": 0, "merkle_tree": 4}
+# merkle_tree: the opened leaves of the instance of 2^size leaves
+MERKLE_OPENED = {4: 3, 6: 8}
 CHANNEL_SYSTEMS = ("perm_channel", "boundary", "selector_flush", "lookup_flush", "nonzero")
 
 
@@ -154,6 +165,51 @@ def keccak_lookups(size: int, seed: int):
     return core, wi.to_core_witness(core, omap), {"table_sizes": sizes}
 
 
+def sha256(size: int, seed: int):
+    """(core system, witness) of examples/sha256.py's table at 2^size
+    compressions."""
+    from binius_tpu.m3.builder.table import M3ConstraintSystem
+    from binius_tpu.m3.builder.witness import WitnessIndex
+    from binius_tpu.m3.gadgets.sha256 import Sha256
+
+    random.seed(seed)
+    n = 1 << size
+    m3 = M3ConstraintSystem()
+    t = m3.add_table("sha256")
+    msg = [t.add_committed(f"m{i}", 0, 5) for i in range(16)]
+    gadget = Sha256.build(t, "sha", msg)
+    core, omap = m3.compile([size])
+    wi = WitnessIndex(m3, [size])
+    tw = wi.table(0)
+    rows = [[random.getrandbits(32) for _ in range(16)] for _ in range(n)]
+    for i, col in enumerate(msg):
+        tw.set_packed_ints(col, [r[i] for r in rows])
+    gadget.populate(tw, rows)
+    return core, wi.to_core_witness(core, omap)
+
+
+def merkle_tree(size: int, seed: int):
+    """(core system, witness, statement keywords) of examples/merkle_tree.py's
+    system: MERKLE_OPENED[size] inclusions in a tree of 2^size leaves."""
+    from binius_tpu.m3.builder.table import M3ConstraintSystem
+    from binius_tpu.m3.builder.witness import WitnessIndex
+    from binius_tpu.m3.gadgets.merkle_tree import MerkleTreeCS, MerkleTreeTrace
+
+    random.seed(seed)
+    n = 1 << size
+    leaves = [bytes(random.getrandbits(8) for _ in range(32)) for _ in range(n)]
+    opened = random.sample(range(n), MERKLE_OPENED[size])
+    trace = MerkleTreeTrace.generate(7, leaves, opened)
+    m3 = M3ConstraintSystem()
+    cs = MerkleTreeCS(m3)
+    sizes = cs.table_sizes(trace)
+    core, omap = m3.compile_sizes(sizes)
+    wi = WitnessIndex.with_sizes(m3, sizes)
+    cs.fill_tables(trace, wi)
+    return (core, wi.to_core_witness(core, omap),
+            {"boundaries": cs.make_boundaries(trace), "table_sizes": sizes})
+
+
 def statement(circuit: str, size: int, seed: int):
     """(core system, witness, keywords of `prove` and `verify`) of one
     instance: the boundaries or the table sizes where it has them."""
@@ -161,6 +217,10 @@ def statement(circuit: str, size: int, seed: int):
         return channel_system(circuit, size, seed)
     if circuit == "keccak_lookups":
         return keccak_lookups(size, seed)
+    if circuit == "merkle_tree":
+        return merkle_tree(size, seed)
+    if circuit == "sha256":
+        return (*sha256(size, seed), {})
     return (*build(circuit, size, seed), {})
 
 

@@ -29,9 +29,10 @@ here, each in a process of its own, in the order DIR, here, here, DIR.
 --proof profiles the whole proof instead (`constraint_system.prove.prove`
 on `circuits.instance(circuit, log-rows, seed)`, as `chip_smoke.py` proves
 it: u32_add, b32_mul, keccak, groestl, u32_mul_gkr, bitwise_ops or
-keccak_lookups, 2^log-rows rows, products or permutations, by default the
-circuit's grid size, with the instance's boundaries and table sizes).
-It first prints the
+keccak_lookups, sha256 or merkle_tree, 2^log-rows rows, products,
+permutations, compressions or leaves, by default the circuit's grid size
+or `circuits.CARD_SIZE`, with the instance's boundaries and table sizes).
+It first prints the first proof's length and peak device memory, the
 warm proof's wall time and phases (median of 3) and the verify time, the
 latter also with the evalcheck's shift indicators checked one claim at a
 time where the tree stacks them; the profile then adds the device
@@ -75,7 +76,11 @@ def warm_and_verify(csp, core, witness, stmt) -> None:
 
     from binius_tpu_torch.protocols import shift_ind
 
+    torch.cuda.reset_peak_memory_stats()
     proof = csp.prove(core, witness, **stmt)
+    torch.cuda.synchronize()
+    print(f"proof: {len(proof)} bytes, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     runs = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -124,7 +129,7 @@ def main() -> int:
                          "the circuit's grid size with --proof)")
     ap.add_argument("--circuit", default="u32_add",
                     choices=("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr",
-                             "bitwise_ops", "keccak_lookups"))
+                             "bitwise_ops", "keccak_lookups", "sha256", "merkle_tree"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")
@@ -133,8 +138,9 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     if args.log_rows is None:
-        from binius_tpu_torch.circuits import GRID_SIZE
-        args.log_rows = GRID_SIZE[args.circuit] if args.proof else 22
+        from binius_tpu_torch import circuits
+        sizes = {**circuits.GRID_SIZE, **getattr(circuits, "CARD_SIZE", {})}
+        args.log_rows = sizes[args.circuit] if args.proof else 22
     if args.against:
         here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         other = os.path.abspath(args.against)
@@ -321,7 +327,9 @@ def main() -> int:
             print(f"{ev.name.removeprefix('prove.'):>16} {wall:10.3f} {busy:10.3f} "
                   f"{1 - busy / wall if wall else 0:7.4f}")
 
-    prof, wall_ms, launches, calls = profiled_opening()
+    # (a name of its own: `recording_call` appends to `calls`, and the
+    # cProfile run below launches more)
+    prof, wall_ms, launches, profiled_calls = profiled_opening()
 
     # the device's own events (kernels, copies, fills), not the host ops
     # that launched them, nor the device spans of the prover's phase ranges
@@ -351,17 +359,17 @@ def main() -> int:
     for ms, count, key, shapes in ops[:12]:
         print(f"{ms:10.3f} {count:6d}  {key} {str(shapes)[:90]}")
 
-    per_launch(prof, calls)
+    per_launch(prof, profiled_calls)
 
     runs = {f"as run (B128 persistent from {bitslice_cuda.B128_PERSISTENT_FROM})":
-            k1_by_size(prof, calls)}
+            k1_by_size(prof, profiled_calls)}
     if args.k1_designs:
         split = bitslice_cuda.B128_PERSISTENT_FROM
         for label, start in (("B128 all one tile per block", 1 << 62),
                              ("B128 all persistent", 0)):
             bitslice_cuda.B128_PERSISTENT_FROM = start
-            prof, wall_ms, _, calls = profiled_opening()
-            runs[label] = k1_by_size(prof, calls)
+            prof, wall_ms, _, profiled_calls = profiled_opening()
+            runs[label] = k1_by_size(prof, profiled_calls)
         bitslice_cuda.B128_PERSISTENT_FROM = split
     keys = sorted({k for sizes in runs.values() for k in sizes})
     print("K1 device us by level and batch size 2^k <= n < 2^(k+1) (launches):")

@@ -27,6 +27,8 @@ from binius_tpu_torch.constraint_system import system as cs_system
 from binius_tpu_torch.math.arith import ArithExpr
 from binius_tpu_torch.m3.gadgets import b32_mul
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 SIZE, SEED = 10, 0
 
 

@@ -10,6 +10,8 @@ from binius_tpu.fields import tower as jtower
 from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.fields import bitslice, bitslice_cuda, tower
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 
 def _words(shape, seed):
     return np.random.default_rng(seed).integers(0, 1 << 32, size=shape, dtype=np.uint32)

@@ -27,6 +27,8 @@ from binius_tpu_torch import circuits
 from binius_tpu_torch.constraint_system import prove as csp
 from binius_tpu_torch.constraint_system import system as cs_system
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 SIZE, SEED = 5, 0
 
 

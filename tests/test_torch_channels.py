@@ -19,6 +19,7 @@ and digest, and their witnesses validate. Exact comparisons throughout."""
 import hashlib
 
 import pytest
+import torch
 
 import chip_smoke
 from scripts import port_golden_proof
@@ -27,6 +28,8 @@ from binius_tpu_torch import circuits
 from binius_tpu_torch.constraint_system import prove as csp
 from binius_tpu_torch.constraint_system import system as cs_system
 from binius_tpu_torch.fields import tower
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 
 @pytest.mark.parametrize("name", circuits.CHANNEL_SYSTEMS)

@@ -10,6 +10,7 @@ JAX package's. Exact comparisons."""
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu.constraint_system import oracle as jom
 from binius_tpu.constraint_system import witness as jwitness
@@ -25,6 +26,8 @@ from binius_tpu_torch.fields import tower
 from binius_tpu_torch.math import mle
 from binius_tpu_torch.protocols import evalcheck, shift_ind
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 LEVEL = 7
 N_BITS = 8    # the B1 column: 2^8 bits in 8 packed words

@@ -18,6 +18,8 @@ from binius_tpu.fields import tower as jtower
 from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.fields import bitslice, bitslice_cuda, scalar, tower
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 N = 40   # not a multiple of 32: the bitsliced levels pad
 
 
@@ -111,3 +113,17 @@ def test_split_and_embed_match_reference(level, sub_level):
     x = _elems(sub_level, 3, 6)
     assert _same(tower.embed(sub_level, level, from_reference(x, "cpu")),
                  jtower.embed(sub_level, level, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("level", range(8))
+def test_scalar_mul_of_subfield_operands_matches_reference(level):
+    """The host product runs at the smallest level whose subfield holds
+    both operands: operands from every pair of subfields of T_level give
+    the JAX package's products."""
+    rng = np.random.default_rng(level + 50)
+    for la in range(level + 1):
+        for lb in range(level + 1):
+            for _ in range(4):
+                a = int.from_bytes(rng.bytes(16), "little") & ((1 << (1 << la)) - 1)
+                b = int.from_bytes(rng.bytes(16), "little") & ((1 << (1 << lb)) - 1)
+                assert scalar.mul(level, a, b) == jscalar.mul(level, a, b), (la, lb)

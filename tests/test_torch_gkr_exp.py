@@ -22,6 +22,8 @@ from binius_tpu_torch.math import mle
 from binius_tpu_torch.protocols import gkr_exp
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 N_BITS = 5
 
 

@@ -37,6 +37,8 @@ from binius_tpu_torch.protocols.sumcheck import prove as sc_prove
 from binius_tpu_torch.protocols.sumcheck.common import CompositeSumClaim, SumcheckClaim
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 
 def _values(m: int, n_vars: int, seed: int) -> np.ndarray:
     """(m, 2^n, 4) uint32 limbs of non-zero B128 values."""

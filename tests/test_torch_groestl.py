@@ -5,6 +5,7 @@ kernels read. Bit-exact."""
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu.hash import groestl as jg
 from binius_tpu.hash import groestl_pallas as jgp
@@ -12,6 +13,8 @@ from binius_tpu.merkle.tree import hash_leaves
 from binius_tpu.protocols.fri import leaf_blobs
 from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.hash import groestl, groestl_cuda
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 
 def _words(shape, seed):

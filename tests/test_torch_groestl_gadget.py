@@ -30,6 +30,8 @@ from binius_tpu_torch.m3.builder.table import M3ConstraintSystem
 from binius_tpu_torch.m3.builder.witness import WitnessIndex
 from binius_tpu_torch.m3.gadgets import groestl
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 SIZE, SEED = 3, 0
 ORACLE_FIELDS = ("id", "n_vars", "tower_level", "variant", "inner", "shift_offset",
                  "shift_block_bits", "shift_variant", "lc_offset", "lc_coeffs", "log_degree",

@@ -25,6 +25,8 @@ from binius_tpu_torch.constraint_system.system import validate_witness
 from binius_tpu_torch.fields import tower
 from binius_tpu_torch.m3.gadgets import keccak
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 SIZE, SEED = 1, 0
 ORACLE_FIELDS = ("id", "n_vars", "tower_level", "variant", "inner", "shift_offset",
                  "shift_block_bits", "shift_variant", "lc_offset", "lc_coeffs", "log_degree",

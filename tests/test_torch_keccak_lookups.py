@@ -21,6 +21,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from scripts import port_golden_proof
@@ -35,6 +36,8 @@ from binius_tpu_torch.m3.builder.table import M3ConstraintSystem
 from binius_tpu_torch.m3.builder.witness import WitnessIndex
 from binius_tpu_torch.m3.gadgets import keccak
 from binius_tpu_torch.protocols.sumcheck import prove as sc_prove
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 SIZE, SEED = 0, 0
 

@@ -22,6 +22,8 @@ from binius_tpu_torch.math.arith import ArithExpr
 from binius_tpu_torch.protocols import shift_ind
 from binius_tpu_torch.protocols.transparent import MLEFromValues
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 LOG_ROWS = 3
 
 

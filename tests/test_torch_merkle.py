@@ -6,6 +6,7 @@ reference hashes on the host without compiling a device kernel."""
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu.merkle import tree as jtree
 from binius_tpu.protocols import fri as jfri
@@ -13,6 +14,8 @@ from binius_tpu_torch.convert import from_reference
 from binius_tpu_torch.hash import groestl_cuda
 from binius_tpu_torch.merkle import tree
 from binius_tpu_torch.protocols import fri
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 
 def _codeword(n, seed):

@@ -20,12 +20,15 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from scripts import port_golden_proof
 from binius_tpu_torch.constraint_system import prove as csp
 from binius_tpu_torch.constraint_system import system as cs_system
 from binius_tpu_torch.m3.gadgets import mul
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 SIZE, SEED = 7, 0
 

@@ -17,6 +17,8 @@ from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.fields import tower
 from binius_tpu_torch.ntt import additive_ntt, bitsliced_ntt
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 
 def _b128(n, seed):
     return np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 4), dtype=np.uint32)

@@ -8,6 +8,7 @@ rejected. The JAX opening runs once, in the module fixture."""
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu.fields import tower as jtower
 from binius_tpu.protocols import fri as jfri
@@ -19,6 +20,8 @@ from binius_tpu_torch.convert import (claims_from_reference, fri_params_from_ref
 from binius_tpu_torch.fields import scalar
 from binius_tpu_torch.protocols import piop, ring_switch
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 SHAPES = ((0, 8), (5, 5), (3, 7))    # (level, n_vars) of the committed columns
 META = (0, 1, 0, 2)

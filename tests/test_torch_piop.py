@@ -7,10 +7,13 @@ JAX package are held by `test_torch_opening.py`."""
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu_torch.fields import scalar, tower
 from binius_tpu_torch.protocols import fri, piop
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 LEVEL = 7
 

@@ -15,11 +15,14 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu_torch.constraint_system import prove as csp
 from binius_tpu_torch.constraint_system.system import Flush
 from binius_tpu_torch.convert import witness_from_reference
 from binius_tpu_torch.m3.gadgets import arith
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "proof_self_golden.json")

@@ -16,6 +16,8 @@ from binius_tpu_torch.merkle.tree import commit_codeword_device
 from binius_tpu_torch.m3.gadgets.arith import u32_add_columns, u32_add_populate
 from binius_tpu_torch.protocols import fri, piop
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 LOG_ROWS = 11   # 4 columns x 2^9 B128 elements: total_vars 11
 
 

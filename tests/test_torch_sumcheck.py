@@ -14,6 +14,7 @@ compiles (`test_arith_expr_matches_reference`)."""
 
 import numpy as np
 import pytest
+import torch
 
 from binius_tpu.fields import tower as jtower
 from binius_tpu.math import arith as jarith
@@ -26,6 +27,8 @@ from binius_tpu_torch.math import arith
 from binius_tpu_torch.protocols.sumcheck import common, verify, zerocheck
 from binius_tpu_torch.protocols.sumcheck import prove as sc_prove
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 LEVEL = 7
 MASKS = {0: 1, 3: 0xFF, 7: (1 << 128) - 1}

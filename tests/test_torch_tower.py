@@ -11,6 +11,8 @@ from binius_tpu_torch.convert import from_reference, to_reference
 from binius_tpu_torch.device import i32, shr
 from binius_tpu_torch.fields import scalar, tower
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 
 @pytest.mark.parametrize("level", [3, 4, 5, 6, 7])
 def test_scalar_mul_and_invert_match_reference(level):

@@ -3,11 +3,14 @@ JAX package's: the same writes and samples give the same tape, the same
 challenges and the same digests."""
 
 import numpy as np
+import torch
 
 from binius_tpu.hash import groestl as jgroestl
 from binius_tpu.transcript import transcript as jtranscript
 from binius_tpu_torch.hash import groestl
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
+
+torch.set_num_threads(1)  # the suite's test processes share the cores
 
 
 def _script(t, rng):

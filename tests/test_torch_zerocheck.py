@@ -37,6 +37,8 @@ from binius_tpu_torch.protocols.sumcheck import univariate_zerocheck as uzc
 from binius_tpu_torch.protocols.sumcheck import zerocheck
 from binius_tpu_torch.transcript.transcript import ProverTranscript, VerifierTranscript
 
+torch.set_num_threads(1)  # the suite's test processes share the cores
+
 # sha256 of the JAX package's batch_prove transcript on the golden claim
 GOLDEN_ZEROCHECK = "4ca998c8f433079c03498052e48d0067bd2196a222d562d7608449106cc52ab0"
 
