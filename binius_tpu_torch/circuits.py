@@ -35,14 +35,30 @@ it, from inputs drawn from `seed` with the generator the example uses:
 - the channel systems (`CHANNEL_SYSTEMS`, `channel_system`): the
   hand-built systems of the JAX package's channel and lookup tests on
   2^size rows: a permutation channel, boundaries, selector flushes, a
-  lookup with multiplicity bits, a non-zero claim.
+  lookup with multiplicity bits, a non-zero claim;
+- `u32_sub`: one table ("u32sub") of 2^size u32 subtractions
+  (`U32Sub.build(t, "sub", xin, yin)`), x then y the 2^size u32 values of
+  numpy's `default_rng(seed)`, each `integers(0, 2**32, 2**size)`;
+- `u32_mul`: one table ("mul") of 2^size schoolbook u32 products
+  (`U32Mul.build(t, "mul", xin, yin)`), x then y drawn as u32_sub's;
+- `barrel_shifter`: one table ("barrel_shifter") of one u32 column xin
+  and its three barrel shifters `rotl` (CIRCULAR_LEFT), `shl`
+  (LOGICAL_LEFT) and `shr` (LOGICAL_RIGHT); from numpy's
+  `default_rng(seed)`: x (`integers(0, 2**32, 2**size)`), then the
+  amounts of rotl, shl and shr (each `integers(0, 32, 2**size)`);
+- `div_uu32`: one table ("div") of 2^size u32 divisions
+  (`DivUU32.build(t, "div")`); from numpy's `default_rng(seed)`: the
+  dividends p (`integers(0, 2**32, 2**size)`), then the divisors q
+  (`integers(0, 2**16, 2**size) + 1`).
 
 `GRID_SIZE` is each circuit's size in the reference grid (the benchmark
 sizes of the upstream project's record), and keccak_lookups' at the
 keccak grid's size. `CARD_SIZE` holds the sizes `chip_smoke.py` proves
-the two examples outside the grid at: sha256 2^14 compressions (its
-committed columns 2^19 bits each, as keccak's at 2^13) and merkle_tree
-2^20 leaves with 2^12 opened.
+the circuits outside the grid at: sha256 2^14 compressions (its
+committed columns 2^19 bits each, as keccak's at 2^13), merkle_tree
+2^20 leaves with 2^12 opened, u32_sub 2^22 rows (the grid's size of a
+u32 op), u32_mul 2^20 products and div_uu32 2^20 divisions (the grid's
+size of u32 products, u32_mul_gkr's) and barrel_shifter 2^20 rows.
 """
 
 from __future__ import annotations
@@ -50,10 +66,12 @@ from __future__ import annotations
 import random
 
 CIRCUITS = ("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
-            "keccak_lookups", "sha256", "merkle_tree")
+            "keccak_lookups", "sha256", "merkle_tree", "u32_sub", "u32_mul", "barrel_shifter",
+            "div_uu32")
 GRID_SIZE = {"u32_add": 22, "b32_mul": 20, "keccak": 13, "groestl": 14,
              "u32_mul_gkr": 20, "bitwise_ops": 22, "keccak_lookups": 13}
-CARD_SIZE = {"sha256": 14, "merkle_tree": 20}
+CARD_SIZE = {"sha256": 14, "merkle_tree": 20, "u32_sub": 22, "u32_mul": 20,
+             "barrel_shifter": 20, "div_uu32": 20}
 # merkle_tree: the opened leaves of a tree of 2^size leaves; the example's
 # own instance (16 leaves, 3 opened), a 64-leaf one in which every nodes
 # table has rows, and the card's
@@ -109,6 +127,19 @@ def _grid_instance(circuit: str, size: int, seed: int, device):
     if circuit == "bitwise_ops":
         from .m3.gadgets import arith
         return arith.bitwise_system(size, *arith.u32_add_rows(size, seed), device)
+    if circuit == "u32_sub":
+        from .m3.gadgets import arith
+        return arith.u32_sub_system(size, *arith.u32_add_rows(size, seed), device)
+    if circuit == "u32_mul":
+        from .m3.gadgets import arith, mul
+        return mul.u32_mul_system(size, *arith.u32_add_rows(size, seed), device)
+    if circuit == "barrel_shifter":
+        from .m3.gadgets import barrel_shifter
+        return barrel_shifter.barrel_shifter_system(
+            size, *barrel_shifter.barrel_shifter_inputs(size, seed), device)
+    if circuit == "div_uu32":
+        from .m3.gadgets import div
+        return div.div_system(size, *div.div_inputs(size, seed), device)
     raise ValueError(f"unknown circuit {circuit!r}")
 
 

@@ -1,8 +1,9 @@
 """Reference-format (CanonicalTower) constraint-system serialization.
 
-The port's copy of the writer of `binius_tpu/constraint_system/canonical.py`
-(its reader is not needed by the prover or the verifier). Byte-exact
-implementation of the reference's `SerializeBytes` derive output
+The port's copy of `binius_tpu/constraint_system/canonical.py`: the
+writer and its reader (`deserialize`, which gives back the symbolic
+system that `serialize` wrote). Byte-exact implementation of the
+reference's `SerializeBytes` derive output
 for `ConstraintSystem<BinaryField128b>` (`constraint_system/mod.rs:35-45`)
 with `SerializationMode::CanonicalTower`:
 
@@ -379,3 +380,173 @@ def _groestl256_memo(data: bytes) -> bytes:
     the system anew from the proof's table sizes, and the host hash of
     keccak_lookups' 310 KB takes about a second."""
     return groestl256(data)
+
+
+# ---------------------------------------------------------------------------
+# Reader (round-trip of the symbolic form)
+# ---------------------------------------------------------------------------
+
+class _R:
+    def __init__(self, data: bytes):
+        self.b = io.BytesIO(data)
+
+    def u8(self):
+        return struct.unpack("<B", self.b.read(1))[0]
+
+    def u32(self):
+        return struct.unpack("<I", self.b.read(4))[0]
+
+    def u64(self):
+        return struct.unpack("<Q", self.b.read(8))[0]
+
+    def f(self, level=7):
+        return int.from_bytes(self.b.read(max(1, (1 << level) // 8)), "little")
+
+    def string(self):
+        return self.b.read(self.u32()).decode()
+
+    def option(self, read):
+        return read() if self.u8() else None
+
+    def vec(self, read):
+        return tuple(read() for _ in range(self.u32()))
+
+
+def _r_circuit(r: _R) -> tuple:
+    """An ArithCircuit read back as its step tuple, the canonical form (a
+    tree would lose the duplicated steps of reused subexpressions)."""
+    n = r.u32()
+    steps = []
+    for _ in range(n):
+        tag = r.u8()
+        if tag == 0:
+            steps.append(("add", r.u32(), r.u32()))
+        elif tag == 1:
+            steps.append(("mul", r.u32(), r.u32()))
+        elif tag == 2:
+            steps.append(("pow", r.u32(), r.u64()))
+        elif tag == 3:
+            steps.append(("const", r.f()))
+        elif tag == 4:
+            steps.append(("var", r.u32()))
+        else:
+            raise ValueError(tag)
+    return tuple(steps)
+
+
+_TRANSPARENT_FIELDS = {
+    # registered name -> field token kinds, declared order
+    "Constant": ("usize", "f128", "usize"),
+    "StepDown": ("usize", "usize"),
+    "StepUp": ("usize", "usize"),
+    "MultilinearExtensionTransparent": ("vec_f128",),
+}
+
+
+def _r_transparent(r: _R):
+    tname = r.string()
+    kinds = _TRANSPARENT_FIELDS[tname]
+    payload = []
+    for kind in kinds:
+        if kind == "usize":
+            payload.append((kind, r.u32()))
+        elif kind == "u64":
+            payload.append((kind, r.u64()))
+        elif kind == "f128":
+            payload.append((kind, r.f()))
+        elif kind == "vec_f128":
+            payload.append((kind, r.vec(r.f)))
+    return tname, tuple(payload)
+
+
+def deserialize(data: bytes) -> SymbolicSystem:
+    r = _R(data)
+    inv_var = {v: k for k, v in _VARIANTS.items()}
+    inv_shift = {v: k for k, v in _SHIFT_VARIANTS.items()}
+    inv_spec = {v: k for k, v in _SIZE_SPECS.items()}
+    inv_dir = {v: k for k, v in _DIRECTIONS.items()}
+
+    def r_oracle():
+        r.u32()  # id (dense, implied by position)
+        name = r.option(r.string)
+        table_id = r.u32()
+        vpr = r.u32()
+        lvl = r.u32()
+        tag = inv_var[r.u8()]
+        if tag == "committed":
+            variant = ("committed",)
+        elif tag == "transparent":
+            tname, payload = _r_transparent(r)
+            variant = ("transparent", tname, payload)
+        elif tag == "structured":
+            variant = ("structured", _r_circuit(r))
+        elif tag == "repeating":
+            variant = ("repeating", r.u32())
+        elif tag == "projected":
+            oid = r.u32()
+            vals = r.vec(r.f)
+            pv = ("offset", r.u32()) if r.u8() == 0 else ("last",)
+            variant = ("projected", oid, vals, pv)
+        elif tag == "shifted":
+            variant = ("shifted", r.u32(), r.u32(), r.u32(),
+                       inv_shift[r.u8()])
+        elif tag == "packed":
+            variant = ("packed", r.u32(), r.u32())
+        elif tag == "linear_combination":
+            off = r.f()
+            inner = r.vec(lambda: (r.u32(), r.f()))
+            variant = ("linear_combination", off, inner)
+        elif tag == "zero_padded":
+            variant = ("zero_padded", r.u32(), r.u32(), r.u32(), r.u32())
+        else:
+            variant = ("composite", r.vec(r.u32), _r_circuit(r))
+        return SymbolicOracle(name, table_id, vpr, lvl, variant)
+
+    def r_oracle_or_const():
+        if r.u8() == 0:
+            return ("oracle", r.u32())
+        return ("const", r.f(), r.u32())
+
+    oracles = r.vec(r_oracle)
+
+    def r_cs():
+        table_id, vpr = r.u32(), r.u32()
+        ids = r.vec(r.u32)
+
+        def r_c():
+            name = r.string()
+            expr = _r_circuit(r)
+            pred = ("sum", r.f()) if r.u8() == 0 else ("zero",)
+            return SymbolicConstraint(name, expr, pred)
+        return SymbolicConstraintSet(table_id, vpr, ids, r.vec(r_c))
+
+    constraint_sets = r.vec(r_cs)
+    non_zero = r.vec(r.u32)
+
+    def r_flush():
+        table_id, vpr = r.u32(), r.u32()
+        entries = r.vec(r_oracle_or_const)
+        ch = r.u32()
+        d = inv_dir[r.u8()]
+        sels = r.vec(r.u32)
+        mult = r.u64()
+        return SymbolicFlush(table_id, vpr, entries, ch, d, sels, mult)
+
+    flushes = r.vec(r_flush)
+
+    def r_exp():
+        bits = r.vec(r.u32)
+        base = r_oracle_or_const()
+        return SymbolicExp(bits, base, r.u32())
+
+    exps = r.vec(r_exp)
+    channel_count = r.u32()
+
+    def r_spec():
+        tag = inv_spec[r.u8()]
+        return (tag, r.u32()) if tag == "fixed" else (tag,)
+
+    specs = r.vec(r_spec)
+    assert not r.b.read(1), "trailing bytes"
+    return SymbolicSystem(oracles, constraint_sets, non_zero, flushes, exps,
+                          channel_count, specs)

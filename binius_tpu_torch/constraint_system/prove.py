@@ -25,12 +25,14 @@ phases on one device (CUDA unless the caller names another):
 
 The boundaries are observed after the digest, and the table sizes, where
 given, are the proof's first message. `last_phase_times` holds the last
-proof's seconds per phase.
+proof's seconds per phase and `last_phase_sizes` its bytes per phase
+(from the commit on: the table sizes' message is in none).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import torch
@@ -44,6 +46,7 @@ from ..protocols.sumcheck import univariate_zerocheck as uzc
 from ..protocols.sumcheck import zerocheck as zc
 from ..protocols.sumcheck.common import LEVEL
 from ..transcript.transcript import ProverTranscript, VerifierTranscript
+from ..utils import tracing
 from . import exp as exp_mod
 from . import witness as witness_mod
 from .system import PUSH, ConstraintSystem
@@ -51,19 +54,27 @@ from .system import PUSH, ConstraintSystem
 SECURITY_BITS = 100
 
 last_phase_times: dict = {}
+last_phase_sizes: dict = {}
+
+_TRACE_PHASES = os.environ.get("BINIUS_TRACE_PHASES", "") not in ("", "0")
 
 
 class _PhaseTimer:
-    """Wall seconds per phase; on a CUDA device each phase ends with a
-    synchronize, so a phase's time holds its device work. Each phase is
-    also a `torch.profiler.record_function` range, "prove.<phase>", that a
-    profiler of the proof sees (`scripts/profile_opening.py --proof`). A
-    phase entered twice (exp: its witnesses before the commit, its GKR
-    walk after) sums both spans."""
+    """Wall seconds and proof bytes per phase; on a CUDA device each phase
+    ends with a synchronize, so a phase's time holds its device work. Each
+    phase is also a `torch.profiler.record_function` range,
+    "prove.<phase>", that a profiler of the proof sees
+    (`scripts/profile_opening.py --proof`), and a span "prove.<phase>" of
+    `utils.tracing` (printed under BINIUS_TRACE_PHASES=1, written to the
+    trace under BINIUS_TRACE_FILE). A phase's bytes are what it wrote to
+    the transcript's tape. A phase entered twice (exp: its witnesses
+    before the commit, its GKR walk after) sums both spans."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, transcript: ProverTranscript):
         self.device = device
+        self.transcript = transcript
         self.times: dict = {}
+        self.sizes: dict = {}
         self._t0 = time.perf_counter()
         self._cur = None
 
@@ -75,21 +86,30 @@ class _PhaseTimer:
         self._finish()
         rf = torch.profiler.record_function(f"prove.{name}")
         rf.__enter__()
-        self._cur = (name, time.perf_counter(), rf)
+        self._cur = (name, time.perf_counter(), rf, len(self.transcript._tape))
 
     def _finish(self) -> None:
         if self._cur is not None:
             self._sync()
-            name, t0, rf = self._cur
+            name, t0, rf, mark = self._cur
+            dt = time.perf_counter() - t0
             rf.__exit__(None, None, None)
-            self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+            nb = len(self.transcript._tape) - mark
+            self.times[name] = self.times.get(name, 0.0) + dt
+            self.sizes[name] = self.sizes.get(name, 0) + nb
+            tracing.record(f"prove.{name}", t0, dt)
+            if _TRACE_PHASES:
+                print(f"[prove] phase {name}: {dt * 1e3:.1f} ms, {nb} proof bytes", flush=True)
             self._cur = None
 
     def done(self) -> dict:
         self._finish()
         self.times["total"] = time.perf_counter() - self._t0
-        last_phase_times.clear()
-        last_phase_times.update(self.times)
+        if _TRACE_PHASES:
+            print(f"[prove] total: {self.times['total'] * 1e3:.1f} ms", flush=True)
+        for last, now in ((last_phase_times, self.times), (last_phase_sizes, self.sizes)):
+            last.clear()
+            last.update(now)
         return self.times
 
 
@@ -326,8 +346,8 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
     M3 tables' row counts, written as the proof's first message (the M3
     verifier reads them back, `peek_table_sizes`)."""
     dev = resolve(device)
-    timer = _PhaseTimer(dev)
     transcript = ProverTranscript()
+    timer = _PhaseTimer(dev, transcript)
     _observe_setup(transcript, system, boundaries)
     if table_sizes is not None:
         w = transcript.message()

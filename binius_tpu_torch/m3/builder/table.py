@@ -199,6 +199,11 @@ class TableBuilder:
         assert all(c.log_values_per_row == vpr for c in cols)
         self.zero_constraints.append((name, vpr, expr, tuple(cols), canon.circuit_steps(expr)))
 
+    def stat(self):
+        """The table's proving-cost statistics (`m3.builder.stat.TableStat`)."""
+        from .stat import TableStat
+        return TableStat(self)
+
     def _check_flush(self, cols: list, selector) -> None:
         """A flush's columns share one values-per-row (every value of every
         row goes to the channel), and so does its selector."""

@@ -1,11 +1,12 @@
 """The u32 arithmetic and bitwise gadgets.
 
-The port of `U32Add` and of `u32_bitwise_and` / `_xor` / `_or` of
+The port of `U32Add`, `U32Sub` and `u32_bitwise_and` / `_xor` / `_or` of
 `binius_tpu/m3/gadgets/arith.py` (over vertically packed B1 columns, one
-u32 per row), with the host witness values of the adder's committed
-columns (`u32_add_populate`) and the seeded instances that `chip_smoke.py`
-and the tests prove: the u32_add table and `examples/bitwise_ops.py`'s
-table of the three bitwise ops.
+u32 per row), with the host witness values of the adder's and the
+subtracter's committed columns (`u32_add_populate`, `u32_sub_populate`)
+and the seeded instances that `chip_smoke.py` and the tests prove: the
+u32_add and u32_sub tables and `examples/bitwise_ops.py`'s table of the
+three bitwise ops.
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ def u32_add_populate(x: np.ndarray, y: np.ndarray) -> tuple[np.ndarray, np.ndarr
     cin = full ^ x ^ y
     cout = ((cin >> np.uint64(1)) & np.uint64(0x7FFFFFFF)) | ((full >> np.uint64(32)) << np.uint64(31))
     return (full & np.uint64(0xFFFFFFFF)).astype(np.uint32), cout.astype(np.uint32)
+
+
+def u32_sub_populate(x: np.ndarray, y: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(zout, bout) words for rows x - y: borrow-in word = x ^ y ^ (x-y),
+    borrow-out = borrow-in >> 1 with the overall borrow (x < y) at
+    position 31."""
+    x = x.astype(np.uint64)
+    y = y.astype(np.uint64)
+    z = (x - y) & np.uint64(0xFFFFFFFF)
+    bout = (((x ^ y ^ z) >> np.uint64(1)) & np.uint64(0x7FFFFFFF)) \
+        | ((x < y).astype(np.uint64) << np.uint64(31))
+    return z.astype(np.uint32), bout.astype(np.uint32)
 
 
 @dataclasses.dataclass
@@ -66,6 +79,41 @@ class U32Add:
                                    np.asarray(y_rows, dtype=np.uint64))
         tw.set_packed_ints(self.zout, z)
         tw.set_packed_ints(self.cout, cout)
+        return z
+
+
+@dataclasses.dataclass
+class U32Sub:
+    """zout = xin - yin (mod 2^32), through borrow columns:
+      bin = bout << 1 within the row
+      (1 + xin + bin)(yin + bin) + bin + bout = 0   [borrow]
+      xin + yin + bin + zout = 0                    [difference]
+    """
+
+    xin: Col
+    yin: Col
+    zout: Col
+    bout: Col
+    bin_: Col
+
+    @staticmethod
+    def build(t: TableBuilder, name: str, xin: Col, yin: Col) -> "U32Sub":
+        zout = t.add_committed(f"{name}.zout", 0, LOG_U32)
+        bout = t.add_committed(f"{name}.bout", 0, LOG_U32)
+        bin_ = t.add_shifted(f"{name}.bin", bout, 1, LOG_U32, shift_ind.LOGICAL_LEFT)
+        x, y, bi, z, bo = (V(i) for i in range(5))
+        t.assert_zero(f"{name}.borrow", [xin, yin, bin_, zout, bout],
+                      (x + bi + ArithExpr.const(1)) * (y + bi) + bi + bo)
+        t.assert_zero(f"{name}.diff", [xin, yin, bin_, zout, bout], x + y + bi + z)
+        return U32Sub(xin, yin, zout, bout, bin_)
+
+    def populate(self, tw, x_rows, y_rows) -> np.ndarray:
+        """Fill zout and bout from per-row u32 inputs; returns the
+        differences."""
+        z, bout = u32_sub_populate(np.asarray(x_rows, dtype=np.uint64),
+                                   np.asarray(y_rows, dtype=np.uint64))
+        tw.set_packed_ints(self.zout, z)
+        tw.set_packed_ints(self.bout, bout)
         return z
 
 
@@ -127,9 +175,27 @@ def u32_add_system(log_rows: int, xs, ys, device=None):
     return core, wi.to_core_witness(core, omap, device)
 
 
+def u32_sub_system(log_rows: int, xs, ys, device=None):
+    """The one-table ("u32sub") system of 2^log_rows rows subtracting the
+    u32 rows ys from xs, and its witness on `device` (CUDA unless named):
+    returns (core system, witness)."""
+    m3 = M3ConstraintSystem()
+    t = m3.add_table("u32sub")
+    xin = t.add_committed("xin", 0, LOG_U32)
+    yin = t.add_committed("yin", 0, LOG_U32)
+    sub = U32Sub.build(t, "sub", xin, yin)
+    core, omap = m3.compile([log_rows])
+    wi = WitnessIndex(m3, [log_rows])
+    tw = wi.table(0)
+    tw.set_packed_ints(xin, xs)
+    tw.set_packed_ints(yin, ys)
+    sub.populate(tw, xs, ys)
+    return core, wi.to_core_witness(core, omap, device)
+
+
 def u32_add_rows(log_rows: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     """2^log_rows random u32 pairs drawn from numpy's `default_rng(seed)`,
-    x then y (the u32_add and bitwise_ops instances)."""
+    x then y (the u32_add, u32_sub, u32_mul and bitwise_ops instances)."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)
     y = rng.integers(0, 1 << 32, 1 << log_rows, dtype=np.uint64)

@@ -1,7 +1,9 @@
-"""The u32 multiplication gadget through the GKR exponentiation phase.
+"""The u32 multiplication gadgets.
 
-The port of `MulUU32` of `binius_tpu/m3/gadgets/mul.py` (full 64-bit
-products of u32 pairs), with the seeded instance of
+The port of `binius_tpu/m3/gadgets/mul.py`: `U32Mul` (the low 32 bits of
+a product, schoolbook: 32 partial products summed by 31 `U32Add`s) and
+`MulUU32` (full 64-bit products through the GKR exponentiation phase),
+with the seeded instances of the u32_mul table and of
 `examples/u32_mul_gkr.py` that `chip_smoke.py` and the tests prove.
 """
 
@@ -14,11 +16,72 @@ import numpy as np
 
 from ...fields import scalar
 from ...math.arith import ArithExpr
+from ...protocols import shift_ind
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
+from .arith import LOG_U32, U32Add
 
 V = ArithExpr.var
 M32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass
+class U32Mul:
+    """zout = xin * yin (mod 2^32), schoolbook:
+      * the multiplier's bits b_i are committed, each the same in all 32
+        values of a row (equal to its rotation by one) and tied to yin by a
+        one-hot fixed column: (b_i + yin) * onehot_i = 0;
+      * the partial product p_i = (xin << i) & b_i is committed, with
+        p_i + xshift_i * b_i = 0;
+      * the 32 partial products are summed by 31 `U32Add`s."""
+
+    xin: Col
+    yin: Col
+    zout: Col
+    bit_cols: list
+    partial_cols: list
+    adders: list
+
+    @staticmethod
+    def build(t: TableBuilder, name: str, xin: Col, yin: Col) -> "U32Mul":
+        bit_cols, partial_cols, adders = [], [], []
+        for i in range(32):
+            b = t.add_committed(f"{name}.b{i}", 0, LOG_U32)
+            bit_cols.append(b)
+            onehot = t.add_fixed(f"{name}.oh{i}", 0, [1 if z == i else 0 for z in range(32)],
+                                 LOG_U32)
+            t.assert_zero(f"{name}.b{i}.tie", [b, yin, onehot], (V(0) + V(1)) * V(2),
+                          group=f"{name}.bit{i}")
+            b_rot = t.add_shifted(f"{name}.b{i}.rot", b, 1, LOG_U32, shift_ind.CIRCULAR_LEFT)
+            t.assert_zero(f"{name}.b{i}.const", [b, b_rot], V(0) + V(1), group=f"{name}.bit{i}")
+            xs = xin if i == 0 else t.add_shifted(f"{name}.xs{i}", xin, i, LOG_U32,
+                                                  shift_ind.LOGICAL_LEFT)
+            p = t.add_committed(f"{name}.p{i}", 0, LOG_U32)
+            t.assert_zero(f"{name}.p{i}.def", [p, xs, b], V(0) + V(1) * V(2),
+                          group=f"{name}.bit{i}")
+            partial_cols.append(p)
+        acc = partial_cols[0]
+        for i in range(1, 32):
+            adder = U32Add.build(t, f"{name}.acc{i}", acc, partial_cols[i])
+            adders.append(adder)
+            acc = adder.zout
+        return U32Mul(xin, yin, acc, bit_cols, partial_cols, adders)
+
+    def populate(self, tw, x_rows, y_rows) -> np.ndarray:
+        """Fill the bit, partial-product and adder columns from the u32
+        rows; returns the low words of the products."""
+        x = np.asarray(x_rows, dtype=np.uint64)
+        y = np.asarray(y_rows, dtype=np.uint64)
+        partials = []
+        for i, (b_col, p_col) in enumerate(zip(self.bit_cols, self.partial_cols)):
+            bit = (y >> np.uint64(i)) & np.uint64(1)
+            tw.set_packed_ints(b_col, bit * np.uint64(M32))
+            partials.append(((x << np.uint64(i)) & np.uint64(M32)) * bit)
+            tw.set_packed_ints(p_col, partials[-1])
+        acc = partials[0]
+        for adder, partial in zip(self.adders, partials[1:]):
+            acc = adder.populate(tw, acc, partial)
+        return acc
 
 
 def _pack_bits_expr(n: int) -> ArithExpr:
@@ -58,9 +121,14 @@ class MulUU32:
     out_high: Col
 
     @staticmethod
-    def build(t: TableBuilder, name: str = "mul") -> "MulUU32":
-        x_bits = [t.add_committed(f"{name}.x{i}", 0, 0) for i in range(32)]
-        y_bits = [t.add_committed(f"{name}.y{i}", 0, 0) for i in range(32)]
+    def build(t: TableBuilder, name: str = "mul", x_bits: list = None,
+              y_bits: list = None) -> "MulUU32":
+        """The operands' bit columns are committed here unless the caller
+        passes its own (32 B1 columns of one bit per row each, LSB first)."""
+        if x_bits is None:
+            x_bits = [t.add_committed(f"{name}.x{i}", 0, 0) for i in range(32)]
+        if y_bits is None:
+            y_bits = [t.add_committed(f"{name}.y{i}", 0, 0) for i in range(32)]
         g = scalar.GENERATORS[6]
         g_shift = scalar.pow(6, g, 1 << 32)
 
@@ -128,4 +196,23 @@ def mul_system(log_n: int, xs, ys, device=None):
     m3, gadget, core, omap = mul_table(log_n)
     wi = WitnessIndex(m3, [log_n])
     gadget.populate(wi.table(0), xs, ys)
+    return core, wi.to_core_witness(core, omap, device)
+
+
+def u32_mul_system(log_rows: int, xs, ys, device=None):
+    """The one-table ("mul") system of 2^log_rows schoolbook products
+    (`U32Mul` of the committed xin and yin) of the u32 rows xs and ys, and
+    its witness on `device` (CUDA unless named): returns (core system,
+    witness)."""
+    m3 = M3ConstraintSystem()
+    t = m3.add_table("mul")
+    xin = t.add_committed("xin", 0, LOG_U32)
+    yin = t.add_committed("yin", 0, LOG_U32)
+    gadget = U32Mul.build(t, "mul", xin, yin)
+    core, omap = m3.compile([log_rows])
+    wi = WitnessIndex(m3, [log_rows])
+    tw = wi.table(0)
+    tw.set_packed_ints(xin, xs)
+    tw.set_packed_ints(yin, ys)
+    gadget.populate(tw, xs, ys)
     return core, wi.to_core_witness(core, omap, device)

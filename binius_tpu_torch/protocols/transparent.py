@@ -1,14 +1,15 @@
 """Transparent (verifier-evaluable) polynomials.
 
-The port of part of `binius_tpu/protocols/transparent.py`: each polynomial
+The port of `binius_tpu/protocols/transparent.py`: each polynomial
 evaluates on host ints at a point (the verifier) and materializes its
-multilinear on a device (the prover's witness). Ported: `Constant`,
+multilinear on a device (the prover's witness): `Constant`,
 `EqIndTransparent`, `MLEFromValues` (the pattern of a fixed column),
 `StepDown` and `StepUp` (the padding masks of a table below its
-power-of-two capacity) and `StructuredArith` (a structured column: a
-multilinear expression of the row index's bits); the JAX module's other
-kinds (powers, select-row, tower basis, disjoint product) wait for the
-front end's column kinds that make them.
+power-of-two capacity), `StructuredArith` (a structured column: a
+multilinear expression of the row index's bits), `Powers` (base^i at
+index i), `SelectRow` (1 at one index), `TowerBasis` (the basis of a
+tower extension) and `DisjointProduct` (the product of two of these over
+disjoint variables).
 """
 
 from __future__ import annotations
@@ -181,3 +182,117 @@ def incrementing_expr(max_size_log: int):
         term = ArithExpr.var(i) * ArithExpr.const(1 << i, 7)
         e = term if e is None else e + term
     return e
+
+
+@dataclasses.dataclass(frozen=True)
+class Powers:
+    """base^i at hypercube index i: the multilinear prod_k (1 - x_k +
+    x_k * base^(2^k))."""
+
+    n_vars: int
+    base: int
+    level: int = 7
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        acc = 1
+        b = self.base
+        for k in range(self.n_vars):
+            acc = scalar.mul(LEVEL, acc, 1 ^ scalar.mul(LEVEL, q[k], 1 ^ b))
+            b = scalar.mul(LEVEL, b, b)
+        return acc
+
+    def mle(self, device=None):
+        vals, cur = [], 1
+        for _ in range(1 << self.n_vars):
+            vals.append(cur)
+            cur = scalar.mul(LEVEL, cur, self.base)
+        return LEVEL, tower.from_ints(LEVEL, vals, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectRow:
+    """1 at hypercube index `index`, 0 elsewhere: the MLE is
+    eq(bits(index), X)."""
+
+    n_vars: int
+    index: int
+    level: int = 0
+
+    def __post_init__(self):
+        assert 0 <= self.index < (1 << self.n_vars)
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        acc = 1
+        for k in range(self.n_vars):
+            acc = scalar.mul(LEVEL, acc, q[k] if (self.index >> k) & 1 else q[k] ^ 1)
+        return acc
+
+    def mle(self, device=None):
+        rows = torch.arange(1 << self.n_vars, device=device)
+        return 0, (rows == self.index).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TowerBasis:
+    """The basis of T_{iota+kappa} over T_iota: the value at hypercube
+    index v is the basis element 1 << (v << iota)."""
+
+    kappa: int
+    iota: int
+
+    @property
+    def n_vars(self) -> int:
+        return self.kappa
+
+    @property
+    def level(self) -> int:
+        return self.iota + self.kappa
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        acc = 0
+        for v in range(1 << self.kappa):
+            term = 1 << (v << self.iota)
+            for k in range(self.kappa):
+                term = scalar.mul(LEVEL, term, q[k] if (v >> k) & 1 else q[k] ^ 1)
+            acc ^= term
+        return acc
+
+    def mle(self, device=None):
+        vals = [1 << (v << self.iota) for v in range(1 << self.kappa)]
+        return self.level, tower.from_ints(self.level, vals, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DisjointProduct:
+    """The product of two transparents over disjoint variables: poly0
+    takes the low n0 variables, poly1 the high ones."""
+
+    poly0: object
+    poly1: object
+
+    @property
+    def n_vars(self) -> int:
+        return self.poly0.n_vars + self.poly1.n_vars
+
+    @property
+    def level(self) -> int:
+        return max(self.poly0.level, self.poly1.level)
+
+    def evaluate_scalar(self, q: list[int]) -> int:
+        n0 = self.poly0.n_vars
+        return scalar.mul(LEVEL, self.poly0.evaluate_scalar(q[:n0]),
+                          self.poly1.evaluate_scalar(q[n0:]))
+
+    def mle(self, device=None):
+        l0, d0 = self.poly0.mle(device)
+        l1, d1 = self.poly1.mle(device)
+        lvl = max(l0, l1, 5)   # products at B32 at least
+        if l0 < lvl:
+            d0 = tower.embed(l0, lvl, d0)
+        if l1 < lvl:
+            d1 = tower.embed(l1, lvl, d1)
+        # index = i1 * 2^n0 + i0: poly1's value times poly0's
+        n = 1 << self.n_vars
+        a = d1.repeat_interleave(d0.shape[0], dim=0)
+        b = d0.repeat((d1.shape[0],) + (1,) * (d0.dim() - 1))
+        return lvl, tower.mul(lvl, a, b).reshape(tower.elem_shape(lvl, (n,)))

@@ -2,10 +2,12 @@
 """Drive binius_tpu_torch's proofs of the reference grid's circuits
 (u32_add, b32_mul, Keccak-f, Grøstl-P, u32 multiplication through the
 GKR exponentiation phase, u32 bitwise ops), of Keccak-f with chi through
-a lookup channel (the grand-product phase), of SHA-256 compressions and
-of Merkle-tree inclusion paths (packed and selected columns), and the
-u32_add commit and opening on their own, on one NVIDIA H100, and check
-them.
+a lookup channel (the grand-product phase), of SHA-256 compressions, of
+Merkle-tree inclusion paths (packed and selected columns), of the M3
+gadgets u32 subtraction, schoolbook u32 multiplication, the barrel
+shifter and u32 division, and the u32_add commit and opening on their
+own, on one NVIDIA H100, and check them, with the constraint systems'
+wire formats and the prover's trace.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -62,31 +64,47 @@ them.
    the 4-row table, proven through the grand-product phase; its table
    sizes are the proof's first message), then the examples outside the
    grid at `circuits.CARD_SIZE`: sha256 (2^14 SHA-256 compressions,
-   1,344 committed B1 columns of 2^19 bits) and merkle_tree (2^12 opened
-   leaves of a 2^20-leaf Grøstl-256 tree, whose levels K6 builds on the
-   card: 33,366 compressions checked in three nodes tables, through
-   packed, projected and shifted columns, with its boundaries and table
-   sizes). For each: the
+   1,344 committed B1 columns of 2^19 bits) and merkle_tree (at
+   `SMOKE_SIZE`, half its card size: 2^11 opened leaves of a 2^19-leaf
+   Grøstl-256 tree, whose levels K6 builds on the card, the paths'
+   compressions checked in three nodes tables, through packed, projected
+   and shifted columns, with its boundaries and table sizes), u32_sub (2^22 rows, `U32Sub`), u32_mul (2^20 schoolbook
+   products, `U32Mul`: 128 committed B1 columns of 2^25 bits),
+   barrel_shifter (2^20 rows, each of the three shift kinds by its own
+   amounts) and div_uu32 (2^20 divisions, `DivUU32`: a `MulUU32` through
+   the exponentiation phase, 64-bit ripple adder and subtracter over bit
+   columns, a non-zero claim). For each: the system's BTPUCS03 bytes
+   (`constraint_system.serialization`) and canonical form read back to
+   the same bytes, digest and symbolic system; the
    system's size and the commit's NTT plan; the first run's time with its
    phase split; one run with every launch counter set to 0 just before
    and read just after (K1, K2, K3, K5 and K6 each launched, K4 once per
    run of the plan's cross stages; no host Grøstl compression), its
-   length, sha256 and peak device memory; for a system with exponents
-   (u32_mul_gkr), every exponent's layer witnesses at the proof's size
-   computed through K1 and through its plain version `bitslice.mul` on the
-   card, bit-equal, K1 once per layer; for a system with flushes
-   (keccak_lookups), the grand-product trees of its flush oracles at the
-   proof's size through K1 (one launch per layer and size group) against
-   the plain `bitslice.mul` on the card, layer by layer, bit-equal
+   length, sha256, peak device memory and bytes per phase
+   (`last_phase_sizes`, summing to its length but for the table sizes'
+   message); for a system with exponents (u32_mul_gkr, div_uu32), every
+   exponent's layer witnesses at the proof's size computed through K1
+   and through its plain version `bitslice.mul` on the card, bit-equal,
+   K1 once per layer; for a system with flushes or non-zero claims
+   (keccak_lookups, merkle_tree, div_uu32), the grand-product trees of
+   its flush oracles at the proof's size through K1 (one launch per layer
+   and size group) against the plain `bitslice.mul` on the card, layer by
+   layer, bit-equal
    (`check_gpa_layers`); the port's `verify` accepts it
-   and rejects it with one byte flipped; the warm prove time (median of 3)
-   with its phase split (commit, exp, gpa, zerocheck, evalcheck, ring
-   switch, PIOP) and the verify time, the bytes equal across the runs.
+   and rejects it with one byte flipped; the warm prove time (median of 3:
+   the counted run and two more) with its phase split (commit, exp, gpa, zerocheck, evalcheck, ring
+   switch, PIOP), the bytes equal across the runs, and the verify time
+   (median of 3: the accepting verify, and two against the system
+   deserialized from its BTPUCS03 bytes).
 8. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
    plain versions (on the CPU) against the kernel path, byte for byte; the
    golden 8-row u32_add proof (`tests/test_golden_transcript.py`'s
-   instance) on the card against its pinned length and sha256; the 2^16-row
+   instance) on the card with tracing on (`utils.tracing`,
+   BINIUS_TRACE_FILE: its Chrome trace, written to chiprun_out/, holds a
+   complete span per phase of the phase's time within 1 ms) against its
+   pinned length, sha256 and bytes per phase (`GOLDEN_PHASE_SIZES_8`); the
+   2^16-row
    proof against the JAX package's digest, and the same proof through the
    plain versions on the CPU against the kernel path's bytes; b32_mul at
    2^10, keccak at 2^1 and groestl at 2^3 (seed 0) on the card against the
@@ -96,11 +114,14 @@ them.
    (`circuits.channel_system`: a permutation channel, boundaries,
    selector flushes, a multiplicity lookup, a non-zero claim), sha256 at
    2^0 and merkle_tree at the example's instance (16 leaves, 3 opened: its
-   LEFT nodes table is empty) the same way, and merkle_tree at 64 leaves
-   with 8 opened (every nodes table has rows, `GOLDEN_CARD`), each proof
-   verified.
-9. One JSON line for the kernels (launches: the nine proofs' counted runs
-   together, and per proof), then, as the last line,
+   LEFT nodes table is empty), u32_sub at 2^4, u32_mul, barrel_shifter and
+   div_uu32 at 2^2 the same way, and merkle_tree at 64 leaves with 8
+   opened (every nodes table has rows, `GOLDEN_CARD`), each proof
+   verified; the golden systems' BTPUCS03 bytes (8 and 2^16 rows, each of
+   `GOLDEN_CIRCUITS`) against the sha256 of the JAX package's
+   (`GOLDEN_SERIALIZE`).
+9. One JSON line for the kernels (launches: the thirteen proofs' counted
+   runs together, and per proof), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Every failure raises: no phase is caught. Without a CUDA device the script
@@ -110,7 +131,9 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import hashlib
+import importlib
 import json
 import os
 import random
@@ -168,6 +191,42 @@ GOLDEN_CIRCUITS = {
     "sha256": (0, 294288, "3503f8885847d388cb69a0e2b33308ecdd665845a20da0b5c5a155114b428d0b"),
     "merkle_tree": (4, 409792,
                     "cdf69c556ed8401569641ea73d04aa9fe4dff199032d6e53b2e8b9b8f2aee6fe"),
+    # the gadget circuits outside the grid (`circuits.instance`)
+    "u32_sub": (4, 7664, "d9f5019fcc63a8b384c3e90cdb2b922af6b3e86a33316390cb5d82e31d88eccb"),
+    "u32_mul": (2, 30000, "91bc4cb428486dcc9551ba645f0b4680238b2abd15bc29d362f9ef2bdeee4efe"),
+    "barrel_shifter": (2, 12896,
+                       "55b52fc2995f670b54425058652ee8e01fa7e130284f06aedbe999536a962797"),
+    "div_uu32": (2, 139472, "6da950f89bf961cd73369cdb4001dad611c8dc93056e2046a6edd5d300c41b33"),
+}
+# The golden 8-row proof's bytes per phase (`constraint_system.prove.
+# last_phase_sizes`), and the sha256 of the JAX package's
+# `constraint_system.serialization.serialize` of each golden system (the
+# sizes of GOLDEN_CIRCUITS, GOLDEN_PROOF_16 and GOLDEN_PROOF_8), computed on
+# the CPU with binius_tpu (jax 0.9.0) by
+#   python scripts/port_golden_proof.py --circuit golden_8
+#   python scripts/port_golden_proof.py --systems-only --circuit <circuit>
+GOLDEN_PHASE_SIZES_8 = {"commit": 32, "exp": 0, "gpa": 0, "zerocheck": 2496, "evalcheck": 192,
+                        "ring_switch": 4176, "piop": 432}
+GOLDEN_SERIALIZE = {
+    "golden_8": "defacd9c77b272e5971129f1054181e81ce8c71dae84bdb1de7bc252141ddb3c",
+    "u32_add": "26de30ea157956732636fac11ac42a6d326c3ce93e0f8b7fe9097aa5ab681922",
+    "b32_mul": "c2f3858ee140ed2b4163b07492cc3d1462f56f2ee92101820117c589b757de3b",
+    "keccak": "d64411b0ff97c2e219dd3dc0e4c20fce6e9b40e3a1e16c5c8df5c3a171e4f3ce",
+    "groestl": "e88591e0725e17cbabf8d9300f0f8225b9cabc583d348e79f07b8fb75118bc36",
+    "u32_mul_gkr": "65172ca4c8dd6a6e0feb68ffe06e7a578a2f70bf88c8f16b7dec9d4cf94fccd7",
+    "bitwise_ops": "1f43c9d5c4eb5f6cfdaa607cef3bf509461a85dcaf70c4a2016458074ad0e03d",
+    "keccak_lookups": "0894b1a8edef51793874c1c33110c2095ae501bd099e8ad4660d7e1b90dce434",
+    "perm_channel": "7dd6df9adf51fb7164f3f16344d5a934f4c59c4e0f02294c9c44112a920ad4a9",
+    "boundary": "e99cfeeb5fb1e91ea7f08ac41a8595a19d13c03ae4602c34b89e994a1bd55aba",
+    "selector_flush": "9672aa2d03a1ba38ac3029fb2984c7eee2673b19bac74668c27a63080a17c65a",
+    "lookup_flush": "3886f661f93233820e816f02c0427b3eaa0165fda5b6a11d4c4f3ab8fc09982a",
+    "nonzero": "d0a2d022b9ffed999be0cd61dc9c8a5c591cc9cc99419aad5d3497c9811f6f77",
+    "sha256": "ee2bde52e107e3dc84ca5189353050380dbb1bf616d0aa86e76533640959582c",
+    "merkle_tree": "95b5af62139d22ec3a284254d1d86144a361b22c4e9da8009c7279b27d165823",
+    "u32_sub": "79d930ae90c25f2534e10ee607053fd469bee55cb162e8a6a2451d684bcf669d",
+    "u32_mul": "4f26f9157c82ae8810e363dc13b20fde08c98feefba5ed8ba021940f80a31a2c",
+    "barrel_shifter": "ce77b1ad8dcd4dcf94d228ed187a00d275950575299e2a3d44fe76ee9033f1bf",
+    "div_uu32": "51f5e78c5ad196491213d1e6d7c3f785bfb8349cb08244cac185176ecd1427e2",
 }
 # proven on the card and through the plain versions by this script, not by
 # the CPU tests: merkle_tree at 64 leaves with 8 opened (random.seed(0);
@@ -175,6 +234,11 @@ GOLDEN_CIRCUITS = {
 GOLDEN_CARD = {
     "merkle_tree": (6, 413184, "09284e3c15eab83ae1cbace6d397729197e1cb9f1a006804a8e66fdc9225e02d"),
 }
+# this script's proof sizes where they are below `circuits.GRID_SIZE` or
+# `circuits.CARD_SIZE`, to keep the whole run under 800 s: merkle_tree at
+# 2^19 leaves, 2^11 opened (`circuits.merkle_opened`), half its card
+# instance (keccak_lookups at half its size took as long as at 2^13)
+SMOKE_SIZE = {"merkle_tree": 19}
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
 # 700 W). Logic: the CUDA C++ Programming Guide's throughput of 32-bit
@@ -188,6 +252,8 @@ GATES_PER_LOP3 = 2
 
 SECURITY_BITS = 100
 LOG_INV_RATE = 1
+# where the traced proof's Chrome trace goes (in the checkout)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 
 
 def log(*args) -> None:
@@ -382,6 +448,57 @@ def check_digest(what: str, proof: bytes, want: tuple) -> None:
     log(f"{what}: {got[0]} bytes, sha256 {got[1]} (= golden)")
 
 
+def check_serialized(name: str, core) -> None:
+    """The sha256 of the system's BTPUCS03 bytes against the JAX
+    package's (`GOLDEN_SERIALIZE`)."""
+    from binius_tpu_torch.constraint_system import serialization
+
+    got = hashlib.sha256(serialization.serialize(core)).hexdigest()
+    if got != GOLDEN_SERIALIZE[name]:
+        raise AssertionError(f"{name}: serialization sha256 {got} != {GOLDEN_SERIALIZE[name]}")
+    log(f"{name} system: serialization sha256 {got} (= JAX golden)")
+
+
+def check_wire_formats(what: str, core):
+    """The system's BTPUCS03 bytes (`serialization.serialize`) read back by
+    `deserialize` to the same bytes and digest, its canonical symbolic form
+    read back by `canonical.deserialize` to itself; returns the
+    deserialized system."""
+    from binius_tpu_torch.constraint_system import canonical, serialization
+
+    t0 = time.perf_counter()
+    raw = serialization.serialize(core)
+    back = serialization.deserialize(raw)
+    if serialization.serialize(back) != raw or back.digest() != core.digest():
+        raise AssertionError(f"{what}: the deserialized system differs")
+    note = "no symbolic form"
+    if core.symbolic is not None:
+        craw = canonical.serialize(core.symbolic)
+        if canonical.deserialize(craw) != core.symbolic:
+            raise AssertionError(f"{what}: the canonical reader differs")
+        note = f"canonical {len(craw)} bytes read back"
+    log(f"{what}: BTPUCS03 {len(raw)} bytes (sha256 {hashlib.sha256(raw).hexdigest()}) read "
+        f"back, same bytes and digest; {note} ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    return back
+
+
+def check_trace(path: str, times: dict) -> None:
+    """The Chrome trace at `path` holds a complete span "prove.<phase>" for
+    each phase of `times` (`last_phase_times`), its durations summing to the
+    phase's time within 1 ms."""
+    events = json.load(open(path))["traceEvents"]
+    for k, v in times.items():
+        if k == "total":
+            continue
+        spans = [e for e in events if e["ph"] == "X" and e["name"] == f"prove.{k}"]
+        got = sum(e["dur"] for e in spans) / 1e3
+        if not spans or abs(got - v * 1e3) > 1.0:
+            raise AssertionError(f"trace: {len(spans)} spans prove.{k} of {got:.3f} ms for a "
+                                 f"phase of {v * 1e3:.3f} ms")
+    log(f"trace {os.path.relpath(path)}: {len(events)} events, a span per phase within 1 ms "
+        f"of its time")
+
+
 class Phases:
     """Seconds of each phase of the script, printed as each one ends."""
 
@@ -479,18 +596,23 @@ def main() -> int:
 
     def report(name, source, replaces, k_out, p_out, k_fn, p_fn, n_bytes, n_ops,
                setup=None, label="", row=True, inner=1):
+        """`p_fn` is the plain version to time, or its time (ms) where an
+        earlier report timed it on the same inputs. The plain version is
+        timed for the kernels line's row only; every case is checked."""
         err = max_abs_err(k_out, p_out)
         if err:
             raise AssertionError(f"{name}: kernel and plain version differ (max |err| {err})")
         ms = cuda_ms(k_fn, args.reps, setup, inner)
-        plain = cuda_ms(p_fn, args.reps, setup)
+        plain = p_fn if isinstance(p_fn, float) or p_fn is None else (
+            cuda_ms(p_fn, args.reps, setup) if row else None)
         b, by = bound_ms(n_bytes, n_ops, rates["gates_per_s"])
         if row:
             rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                              launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=b, bound_by=by, library_ms=None))
+        plain_txt = f"plain {plain:.3f} ms, " if isinstance(plain, float) else ""
         log(f"{name}{' ' + label if label else ''}: bit-equal to plain; {ms:.4f} ms "
-            f"(plain {plain:.3f} ms, bound {b:.4f} ms by {by})")
+            f"({plain_txt}bound {b:.4f} ms by {by})")
 
     # 3. kernel phases at the main path's shapes
     # K1: the packed product at 2^22 elements (the transparents' eq scaling
@@ -663,6 +785,9 @@ def main() -> int:
         b_len = x.numel() * 4 // n_l
         n_blk = (b_len + 8) // 64 + 1
         want = groestl_cuda.leaf_hash_plain(x, lc, b_len)
+        # both variants compute the one plain function on these inputs
+        plain_t = cuda_ms(lambda _: groestl_cuda.leaf_hash_plain(x, lc, b_len),
+                          args.reps) if row else None
         pick = groestl_cuda.LANES_BELOW
         for variant, below in (("16 lanes per leaf", 1 << 62), ("one thread per leaf", 0)):
             groestl_cuda.LANES_BELOW = below
@@ -675,8 +800,7 @@ def main() -> int:
             chosen = (n_l < pick) == (below > 0)
             report("k5_groestl_leaf", "binius_tpu_torch/csrc/groestl.cu",
                    "binius_tpu/hash/groestl_pallas.py:179", got, want,
-                   lambda _: groestl_cuda.leaf_hash_kernel(x, lc, b_len),
-                   lambda _: groestl_cuda.leaf_hash_plain(x, lc, b_len),
+                   lambda _: groestl_cuda.leaf_hash_kernel(x, lc, b_len), plain_t,
                    n_bytes=x.numel() * 4 + n_l * 32,
                    n_ops=n_l * (2 * n_blk + 1) * 10 * GROESTL_ROUND_OPS,
                    label=f"{label}: {n_l} leaves of {b_len} B, {variant}"
@@ -715,6 +839,9 @@ def main() -> int:
         buf[:n_l] = leaf_dig
         pick = groestl_cuda.TAIL_PAIRS
         picked = groestl_cuda.tree_launches(n_l)
+        # every tail position computes the one plain tree of these leaves
+        plain_t = cuda_ms(lambda _: groestl_cuda.tail_plain(leaf_dig),
+                          args.reps) if row else None
         splits = {}  # distinct launch lists -> the least TAIL_PAIRS giving each
         for tail in (0,) + tuple(1 << k for k in range(19)):
             groestl_cuda.TAIL_PAIRS = tail
@@ -733,8 +860,7 @@ def main() -> int:
             report("k6_groestl_pairs", "binius_tpu_torch/csrc/groestl.cu",
                    "binius_tpu/hash/groestl_pallas.py:200",
                    groestl_cuda.split_layers(buf), want,
-                   lambda _: groestl_cuda.pair_levels(buf),
-                   lambda _: groestl_cuda.tail_plain(leaf_dig),
+                   lambda _: groestl_cuda.pair_levels(buf), plain_t,
                    n_bytes=(n_l - 1) * 96, n_ops=(n_l - 1) * 10 * GROESTL_ROUND_OPS,
                    label=f"{label}: {n_l} leaves, tail from {tail} pairs, {n_launch} launches"
                          f"{' (the wrapper picks it)' if list(launches) == picked else ''}",
@@ -977,6 +1103,7 @@ def main() -> int:
     # on the card at its grid size
     from binius_tpu_torch import circuits
     from binius_tpu_torch.constraint_system import prove as csp
+    from binius_tpu_torch.utils import tracing
 
     def commit_plan(core):
         """(K4 launches the commit's NTT makes, the plan's description)."""
@@ -1083,14 +1210,19 @@ def main() -> int:
         held against the plain versions of K2-K6 on the same inputs; one
         run counted (every launch counter set to 0 just before, read just
         after; no host Grøstl compression); its bytes, sha256 and peak
-        memory; verify accepting it and rejecting a flipped byte; the warm
-        time (median of 3) with its split, the verify time, the bytes equal
-        across runs. Returns the counted run's launches."""
+        memory and bytes per phase (summing to its length); verify
+        accepting it and rejecting a flipped byte; the warm time (median of
+        3: the counted run and two more) with its split, the bytes equal
+        across runs, and the verify time: the median of the accepting verify
+        and two verifies against the system read back from its BTPUCS03
+        bytes (whose digest, bytes and canonical form read back the same).
+        Returns the counted run's launches."""
         t0 = time.perf_counter()
         core, witness, stmt = circuits.instance(circuit, size, args.seed, dev)
         torch.cuda.synchronize()
         t_inst = time.perf_counter() - t0
         k4_want, plan_txt = commit_plan(core)
+        wire_core = check_wire_formats(f"{circuit} 2^{size} system", core)
         log(f"proof: {circuit} 2^{size} (seed {args.seed}): {len(core.oracles)} oracles, "
             f"{len(core.oracles.committed_ids())} committed, "
             f"{sum(len(c.zero_constraints) for c in core.constraint_sets)} zero constraints, "
@@ -1144,8 +1276,15 @@ def main() -> int:
         groestl.compress_pairs_t = counted_compress
         torch.cuda.reset_peak_memory_stats()
         cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         proof = csp.prove(core, witness, **stmt)
         torch.cuda.synchronize()
+        # the counted run is also the first warm sample
+        names = ("total", "commit", "exp", "gpa", "zerocheck", "evalcheck", "ring_switch",
+                 "piop", "verify")
+        splits = {"total": [(time.perf_counter() - t0) * 1e3], "verify": [],
+                  **{k: [csp.last_phase_times[k] * 1e3] for k in names[1:-1]}}
         counts = dict(cuda_lib.launches)
         groestl.compress_pairs_t = compress_pairs_t
         log(f"launches on the {circuit} proof: {counts}; host Grøstl compressions "
@@ -1165,13 +1304,22 @@ def main() -> int:
             raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
         log(f"proof {circuit}: {len(proof)} bytes, sha256 {hashlib.sha256(proof).hexdigest()}, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        # the bytes per phase, from the commit on (the table sizes' message
+        # is in none)
+        sizes_msg = 8 + 8 * len(stmt["table_sizes"]) if "table_sizes" in stmt else 0
+        log(f"proof {circuit} bytes per phase: {csp.last_phase_sizes}")
+        if sum(csp.last_phase_sizes.values()) + sizes_msg != len(proof):
+            raise AssertionError(f"{circuit}: phase sizes sum to "
+                                 f"{sum(csp.last_phase_sizes.values())} + {sizes_msg}, the "
+                                 f"proof has {len(proof)} bytes")
         if core.exponents:
             check_exp_layers(core, witness)
         if core.flushes or core.non_zero_claims:
             check_gpa_layers(core, witness)
         t0 = time.perf_counter()
         csp.verify(core, proof, **stmt)
-        log(f"proof {circuit} verifies ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+        splits["verify"].append((time.perf_counter() - t0) * 1e3)
+        log(f"proof {circuit} verifies ({splits['verify'][0]:.1f} ms)")
         bad = bytearray(proof)
         bad[len(bad) // 3] ^= 1
         try:
@@ -1180,10 +1328,7 @@ def main() -> int:
             log(f"proof {circuit} with byte {len(bad) // 3} flipped: rejected ({e})")
         else:
             raise AssertionError(f"{circuit}: a proof with a flipped byte was accepted")
-        names = ("total", "commit", "exp", "gpa", "zerocheck", "evalcheck", "ring_switch",
-                 "piop", "verify")
-        splits = {k: [] for k in names}
-        for _ in range(3):
+        for _ in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             again = csp.prove(core, witness, **stmt)
@@ -1194,11 +1339,14 @@ def main() -> int:
             for k in names[1:-1]:
                 splits[k].append(csp.last_phase_times[k] * 1e3)
             splits["total"].append((t1 - t0) * 1e3)
-            csp.verify(core, again, **stmt)
+            # verify against the system read back from its wire bytes
+            csp.verify(wire_core, again, **stmt)
             splits["verify"].append((time.perf_counter() - t1) * 1e3)
-        split = {k: statistics.median(v) for k, v in splits.items()}
-        log("proof %s 2^%d, warm, median of 3 (ms; verify apart): %s" % (
-            circuit, size, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+        split = {k: statistics.median(splits[k]) for k in names}
+        log("proof %s 2^%d, warm, median of 3: the counted run and two more (ms; verify apart: "
+            "the accepting verify against the system and two against the deserialized "
+            "system): %s" % (
+                circuit, size, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
         return counts
 
     proof_launches = {"u32_add": drive_proof("u32_add", args.log_rows)}
@@ -1207,8 +1355,10 @@ def main() -> int:
                              f"{proof_launches['u32_add']}")
     phases.done("proof u32_add")
     for circuit in ("b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
-                    "keccak_lookups", "sha256", "merkle_tree"):
-        size = circuits.GRID_SIZE.get(circuit) or circuits.CARD_SIZE[circuit]
+                    "keccak_lookups", "sha256", "merkle_tree", "u32_sub", "u32_mul",
+                    "barrel_shifter", "div_uu32"):
+        size = (SMOKE_SIZE.get(circuit) or circuits.GRID_SIZE.get(circuit)
+                or circuits.CARD_SIZE[circuit])
         proof_launches[circuit] = drive_proof(circuit, size)
         phases.done(f"proof {circuit}")
     for r in rows:
@@ -1230,13 +1380,32 @@ def main() -> int:
     log(f"opening 2^{GOLDEN_LOG_ROWS} rows through the plain versions on the CPU: "
         f"the kernel path's bytes")
     phases.done("golden and plain openings")
-    # the golden 8-row proof, and the proof at 2^16 rows: the JAX package's
-    # digest, the kernel path and the plain versions on the CPU
+    # the golden 8-row proof, with tracing on (its Chrome trace written to
+    # chiprun_out/ and held against the phase times), and the proof at 2^16
+    # rows: the JAX package's digest, the kernel path and the plain versions
+    # on the CPU
     core8, wit8 = golden_system(dev)
-    p8 = csp.prove(core8, wit8)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace_path = os.path.join(OUT_DIR, "trace_golden_8.json")
+    os.environ["BINIUS_TRACE_FILE"] = trace_path
+    tr = importlib.reload(tracing)
+    try:
+        p8 = csp.prove(core8, wit8)
+        tr.save(trace_path)
+    finally:
+        del os.environ["BINIUS_TRACE_FILE"]
+        atexit.unregister(tr.save)
+        importlib.reload(tracing)
+    check_trace(trace_path, csp.last_phase_times)
     check_digest("golden 8-row proof on the card", p8, GOLDEN_PROOF_8)
+    if csp.last_phase_sizes != GOLDEN_PHASE_SIZES_8:
+        raise AssertionError(f"golden 8-row proof: bytes per phase {csp.last_phase_sizes} != "
+                             f"{GOLDEN_PHASE_SIZES_8}")
+    log(f"golden 8-row proof bytes per phase: {csp.last_phase_sizes} (= golden)")
+    check_serialized("golden_8", core8)
     csp.verify(core8, p8)
     core16, wit16, _ = circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
+    check_serialized("u32_add", core16)
     p16 = csp.prove(core16, wit16)
     check_digest(f"proof 2^{GOLDEN_LOG_ROWS} rows, seed {GOLDEN_SEED} on the card", p16,
                  GOLDEN_PROOF_16)
@@ -1252,6 +1421,8 @@ def main() -> int:
     # card, and the same proofs through the plain versions on the CPU
     for circuit, (size, n_bytes, sha) in [*GOLDEN_CIRCUITS.items(), *GOLDEN_CARD.items()]:
         core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, dev)
+        if GOLDEN_CIRCUITS.get(circuit, (None,))[0] == size:
+            check_serialized(circuit, core_c)
         pc = csp.prove(core_c, wit_c, **stmt_c)
         check_digest(f"{circuit} proof 2^{size}, seed 0 on the card", pc, (n_bytes, sha))
         csp.verify(core_c, pc, **stmt_c)

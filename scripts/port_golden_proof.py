@@ -49,7 +49,23 @@ instance helpers:
   `MERKLE_OPENED[size]` opened leaves in a tree of 2^size leaves (root id
   7), the leaves' bytes then the opened indices drawn after
   `random.seed(seed)` (`binius_tpu_torch.m3.gadgets.merkle_tree.merkle_inputs`),
-  with its boundaries and table sizes.
+  with its boundaries and table sizes;
+- `u32_sub`: one table ("u32sub") of 2^size u32 subtractions
+  (`U32Sub.build(t, "sub", xin, yin)`), x then y the 2^size u32 values of
+  numpy's `default_rng(seed)`, each `integers(0, 2**32, 2**size)`;
+- `u32_mul`: one table ("mul") of 2^size schoolbook u32 products
+  (`U32Mul.build(t, "mul", xin, yin)`), x then y drawn as u32_sub's;
+- `barrel_shifter`: one table ("barrel_shifter") of one u32 column xin
+  and its three barrel shifters `rotl` (CIRCULAR_LEFT), `shl`
+  (LOGICAL_LEFT) and `shr` (LOGICAL_RIGHT); from numpy's
+  `default_rng(seed)`: x (`integers(0, 2**32, 2**size)`), then the
+  amounts of rotl, shl and shr (each `integers(0, 32, 2**size)`);
+- `div_uu32`: one table ("div") of 2^size u32 divisions
+  (`DivUU32.build(t, "div")`); from numpy's `default_rng(seed)`: the
+  dividends p (`integers(0, 2**32, 2**size)`), then the divisors q
+  (`integers(0, 2**16, 2**size) + 1`);
+- `golden_8`: the golden 8-row u32_add proof of
+  `tests/test_golden_transcript.py` (rows from `random.Random(42)`).
 
 The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`
 (with the boundaries or the table sizes where the instance has them),
@@ -57,15 +73,19 @@ checked with the JAX verifier:
 
     python scripts/port_golden_proof.py [--circuit u32_add ...] [--size 16] [--seed 0]
 
-For each circuit named it prints the system digest, then the proof's
-length and sha256 (minutes on a CPU, most of it compiling; the circuits
-named together share one process's compiled functions).
+For each circuit named it prints the system digest and the sha256 of its
+`constraint_system.serialization.serialize` bytes, then the proof's
+length and sha256 and its bytes per phase (`last_phase_sizes`; minutes on
+a CPU, most of it compiling; the circuits named together share one
+process's compiled functions). `--systems-only` prints the first line
+alone and proves nothing.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import json
 import os
 import random
 import sys
@@ -74,7 +94,8 @@ import sys
 DEFAULT_SIZE = {"u32_add": 16, "b32_mul": 10, "keccak": 1, "groestl": 3,
                 "u32_mul_gkr": 7, "bitwise_ops": 5, "keccak_lookups": 0,
                 "perm_channel": 3, "boundary": 2, "selector_flush": 3, "lookup_flush": 3,
-                "nonzero": 3, "sha256": 0, "merkle_tree": 4}
+                "nonzero": 3, "sha256": 0, "merkle_tree": 4, "u32_sub": 4, "u32_mul": 2,
+                "barrel_shifter": 2, "div_uu32": 2, "golden_8": 3}
 # merkle_tree: the opened leaves of the instance of 2^size leaves
 MERKLE_OPENED = {4: 3, 6: 8}
 CHANNEL_SYSTEMS = ("perm_channel", "boundary", "selector_flush", "lookup_flush", "nonzero")
@@ -210,9 +231,101 @@ def merkle_tree(size: int, seed: int):
             {"boundaries": cs.make_boundaries(trace), "table_sizes": sizes})
 
 
+def golden_8():
+    """(core system, witness) of tests/test_golden_transcript.py's golden
+    8-row u32_add instance."""
+    from binius_tpu.m3.builder.table import M3ConstraintSystem
+    from binius_tpu.m3.builder.witness import WitnessIndex
+    from binius_tpu.m3.gadgets import arith
+
+    rng = random.Random(42)
+    xs = [rng.getrandbits(32) for _ in range(8)]
+    ys = [rng.getrandbits(32) for _ in range(8)]
+    m3 = M3ConstraintSystem()
+    t = m3.add_table("u32add")
+    xin = t.add_committed("xin", 0, arith.LOG_U32)
+    yin = t.add_committed("yin", 0, arith.LOG_U32)
+    adder = arith.U32Add.build(t, "add", xin, yin)
+    core, omap = m3.compile([3])
+    wi = WitnessIndex(m3, [3])
+    tw = wi.table(0)
+    tw.set_packed_ints(xin, xs)
+    tw.set_packed_ints(yin, ys)
+    adder.populate(tw, xs, ys)
+    return core, wi.to_core_witness(core, omap)
+
+
+def gadget_table(circuit: str):
+    """(M3 system, fill) of the u32_sub, u32_mul, barrel_shifter or
+    div_uu32 table: fill(table witness, rng, n) draws n rows of inputs from
+    the numpy generator rng, as the module docstring says, and fills the
+    table's committed columns."""
+    import numpy as np
+
+    from binius_tpu.m3.builder.table import M3ConstraintSystem
+    from binius_tpu.m3.gadgets import arith, barrel_shifter, div, mul
+
+    def u32s(rng, n, bound=1 << 32):
+        return [int(v) for v in rng.integers(0, bound, n, dtype=np.uint64)]
+
+    m3 = M3ConstraintSystem()
+    if circuit in ("u32_sub", "u32_mul"):
+        t = m3.add_table("u32sub" if circuit == "u32_sub" else "mul")
+        xin = t.add_committed("xin", 0, arith.LOG_U32)
+        yin = t.add_committed("yin", 0, arith.LOG_U32)
+        gadget = (arith.U32Sub.build(t, "sub", xin, yin) if circuit == "u32_sub"
+                  else mul.U32Mul.build(t, "mul", xin, yin))
+
+        def fill(tw, rng, n):
+            x, y = u32s(rng, n), u32s(rng, n)
+            tw.set_packed_ints(xin, x)
+            tw.set_packed_ints(yin, y)
+            gadget.populate(tw, x, y)
+    elif circuit == "barrel_shifter":
+        kinds = (("rotl", barrel_shifter.CIRCULAR_LEFT), ("shl", barrel_shifter.LOGICAL_LEFT),
+                 ("shr", barrel_shifter.LOGICAL_RIGHT))
+        t = m3.add_table("barrel_shifter")
+        xin = t.add_committed("xin", 0, arith.LOG_U32)
+        gadgets = [barrel_shifter.BarrelShifter.build(t, name, xin, kind) for name, kind in kinds]
+
+        def fill(tw, rng, n):
+            x = u32s(rng, n)
+            amounts = [u32s(rng, n, 32) for _ in kinds]
+            tw.set_packed_ints(xin, x)
+            for g, (_, kind), a in zip(gadgets, kinds, amounts):
+                g.populate(tw, x, a, kind)
+    elif circuit == "div_uu32":
+        gadget = div.DivUU32.build(m3.add_table("div"), "div")
+
+        def fill(tw, rng, n):
+            p = u32s(rng, n)
+            gadget.populate(tw, p, [q + 1 for q in u32s(rng, n, 1 << 16)])
+    else:
+        raise ValueError(circuit)
+    return m3, fill
+
+
+def gadget_circuit(circuit: str, size: int, seed: int):
+    """(core system, witness) of `gadget_table(circuit)` at 2^size rows,
+    its inputs drawn from numpy's `default_rng(seed)`."""
+    import numpy as np
+
+    from binius_tpu.m3.builder.witness import WitnessIndex
+
+    m3, fill = gadget_table(circuit)
+    core, omap = m3.compile([size])
+    wi = WitnessIndex(m3, [size])
+    fill(wi.table(0), np.random.default_rng(seed), 1 << size)
+    return core, wi.to_core_witness(core, omap)
+
+
 def statement(circuit: str, size: int, seed: int):
     """(core system, witness, keywords of `prove` and `verify`) of one
     instance: the boundaries or the table sizes where it has them."""
+    if circuit == "golden_8":
+        return (*golden_8(), {})
+    if circuit in ("u32_sub", "u32_mul", "barrel_shifter", "div_uu32"):
+        return (*gadget_circuit(circuit, size, seed), {})
     if circuit in CHANNEL_SYSTEMS:
         return channel_system(circuit, size, seed)
     if circuit == "keccak_lookups":
@@ -325,6 +438,8 @@ def main() -> None:
     ap.add_argument("--size", "--log-rows", type=int, default=None,
                     help="log2 of the rows, products or permutations")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--systems-only", action="store_true",
+                    help="print each system's digest and serialization sha256, prove nothing")
     args = ap.parse_args()
 
     import jax
@@ -332,14 +447,20 @@ def main() -> None:
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from binius_tpu.constraint_system import prove as csp
+    from binius_tpu.constraint_system import serialization
 
     for circuit in args.circuit:
         size = DEFAULT_SIZE[circuit] if args.size is None else args.size
         core, witness, kw = statement(circuit, size, args.seed)
-        print(circuit, size, "digest", core.digest().hex(), flush=True)
+        wire = hashlib.sha256(serialization.serialize(core)).hexdigest()
+        print(circuit, size, "digest", core.digest().hex(), "serialize", wire, flush=True)
+        if args.systems_only:
+            continue
         proof = csp.prove(core, witness, log_inv_rate=1, **kw)
+        sizes = dict(csp.last_phase_sizes)
         csp.verify(core, proof, log_inv_rate=1, **kw)
         print(circuit, size, len(proof), hashlib.sha256(proof).hexdigest(), flush=True)
+        print(circuit, size, "phase sizes", json.dumps(sizes), flush=True)
 
 
 if __name__ == "__main__":

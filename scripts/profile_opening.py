@@ -29,8 +29,9 @@ here, each in a process of its own, in the order DIR, here, here, DIR.
 --proof profiles the whole proof instead (`constraint_system.prove.prove`
 on `circuits.instance(circuit, log-rows, seed)`, as `chip_smoke.py` proves
 it: u32_add, b32_mul, keccak, groestl, u32_mul_gkr, bitwise_ops or
-keccak_lookups, sha256 or merkle_tree, 2^log-rows rows, products,
-permutations, compressions or leaves, by default the circuit's grid size
+keccak_lookups, sha256, merkle_tree, u32_sub, u32_mul, barrel_shifter or
+div_uu32, 2^log-rows rows, products, permutations, compressions,
+divisions or leaves, by default the circuit's grid size
 or `circuits.CARD_SIZE`, with the instance's boundaries and table sizes).
 It first prints the first proof's length and peak device memory, the
 warm proof's wall time and phases (median of 3) and the verify time, the
@@ -129,7 +130,8 @@ def main() -> int:
                          "the circuit's grid size with --proof)")
     ap.add_argument("--circuit", default="u32_add",
                     choices=("u32_add", "b32_mul", "keccak", "groestl", "u32_mul_gkr",
-                             "bitwise_ops", "keccak_lookups", "sha256", "merkle_tree"))
+                             "bitwise_ops", "keccak_lookups", "sha256", "merkle_tree",
+                             "u32_sub", "u32_mul", "barrel_shifter", "div_uu32"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--k1-designs", action="store_true")
