@@ -91,6 +91,27 @@ def _mul_bs(level: int, a: list, b: list) -> list:
     return _xor(z0, z2) + _xor(z1, _mul_alpha_bs(level - 1, z2))
 
 
+def _square_bs(level: int, a: list) -> list:
+    """Squaring to the 1-bit base case: s0^s1 low, alpha*s1 high."""
+    if level == 0:
+        return a
+    h = 1 << (level - 1)
+    s0 = _square_bs(level - 1, a[:h])
+    s1 = _square_bs(level - 1, a[h:])
+    return _xor(s0, s1) + _mul_alpha_bs(level - 1, s1)
+
+
+def square_planes(level: int, a: torch.Tensor) -> torch.Tensor:
+    """Bitsliced square of planes [2^level, n_words]."""
+    return torch.stack(_square_bs(level, list(a[:1 << level])))
+
+
+def square(level: int, a: torch.Tensor) -> torch.Tensor:
+    """Element-wise square of a batch (a multiple of 32 elements) through
+    the bitsliced network."""
+    return from_bitsliced(level, square_planes(level, to_bitsliced(level, a)))
+
+
 # ---------------------------------------------------------------------------
 # The same network on stacked plane tensors: the plain version of K1
 # ---------------------------------------------------------------------------

@@ -34,6 +34,11 @@ def bits(level: int) -> int:
     return 1 << level
 
 
+def add(a: int, b: int) -> int:
+    """Field addition: XOR (characteristic 2)."""
+    return a ^ b
+
+
 @functools.lru_cache(maxsize=None)
 def _half_mask(level: int) -> int:
     return (1 << bits(level - 1)) - 1
@@ -145,13 +150,36 @@ def mul_py(level: int, a: int, b: int) -> int:
     return _m128(a, b, _MUL8)
 
 
+# _SQUARE[k][v] = (v << 8k)^2: squaring is F2-linear and a subfield's
+# elements square to the same integers in every larger level, so a square
+# is the XOR of one entry per byte
+_SQUARE: list | None = None
+
+
+def _init_square_tables() -> None:
+    global _SQUARE
+    tables = []
+    for k in range(16):
+        t = [0]
+        for j in range(8):
+            sq = mul_py(7, 1 << (8 * k + j), 1 << (8 * k + j))
+            t += [v ^ sq for v in t]
+        tables.append(t)
+    _SQUARE = tables
+
+
 def square_py(level: int, a: int) -> int:
-    if level == 0:
-        return a
-    h = bits(level - 1)
-    s0 = square_py(level - 1, a & _half_mask(level))
-    s1 = square_py(level - 1, a >> h)
-    return (s0 ^ s1) | (mul_alpha(level - 1, s1) << h)
+    """a * a in T_level, one table entry per byte."""
+    if _SQUARE is None:
+        _init_square_tables()
+    del level
+    out = 0
+    k = 0
+    while a:
+        out ^= _SQUARE[k][a & 0xFF]
+        a >>= 8
+        k += 1
+    return out
 
 
 def invert_py(level: int, a: int) -> int:
@@ -188,6 +216,25 @@ def pow_py(level: int, a: int, e: int) -> int:
 mul, square, invert, pow = mul_py, square_py, invert_py, pow_py
 
 
+def multiplicative_order(level: int, a: int) -> int:
+    """Order of `a` in T_level^* by search (levels <= 4 only)."""
+    assert level <= 4, "order search only for small fields"
+    x = a
+    for i in range(1, 1 << bits(level)):
+        if x == 1:
+            return i
+        x = mul(level, x, a)
+    raise ValueError("not a unit")
+
+
+# -- F2 linear algebra: a matrix is a list of column bitmasks (column j is
+# the image of basis vector e_j) -------------------------------------------
+
+def linmap_columns(level: int, f) -> list[int]:
+    """Columns of the F2-matrix of a linear map f over T_level's F2-basis."""
+    return [f(1 << j) for j in range(bits(level))]
+
+
 def apply_linmap(cols: list[int], x: int) -> int:
     """The F2-linear map with column bitmasks `cols` applied to `x`."""
     out = 0
@@ -198,6 +245,15 @@ def apply_linmap(cols: list[int], x: int) -> int:
         x >>= 1
         j += 1
     return out
+
+
+def mul_matrix(level: int, c: int) -> list[int]:
+    """Columns of multiplication by the constant c, an F2-linear map on T_level."""
+    return [mul(level, c, 1 << j) for j in range(bits(level))]
+
+
+def square_matrix(level: int) -> list[int]:
+    return linmap_columns(level, lambda x: square(level, x))
 
 
 def invert_matrix(cols: list[int], n: int) -> list[int]:
@@ -227,6 +283,13 @@ def invert_matrix(cols: list[int], n: int) -> list[int]:
     return inv_cols
 
 
+def matrix_to_numpy_bits(cols: list[int], n_out_bits: int) -> np.ndarray:
+    """Column bitmasks -> uint8 bit matrix M[out_bit, in_bit]."""
+    c = np.array([[(col >> i) & 1 for i in range(n_out_bits)] for col in cols],
+                 dtype=np.uint8).reshape(len(cols), n_out_bits)
+    return np.ascontiguousarray(c.T)
+
+
 # -- B8 tables for the device base case (levels <= 3) -----------------------
 
 @functools.lru_cache(maxsize=None)
@@ -247,3 +310,34 @@ def b8_square_table() -> np.ndarray:
 def b8_invert_table() -> np.ndarray:
     """invert(0) is 0 in the table; the device ops use that convention."""
     return np.array([0] + [invert_py(3, a) for a in range(1, 256)], dtype=np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def b16_tables() -> dict:
+    """T_4 (B16) as 65536-entry int64 tables: log and exp to the base of
+    its generator (exp[i] = g^(i mod 65535) for i < 2 * 65535, so a sum of
+    two logs needs no reduction; log[0] is unused), the inverse (with
+    invert(0) = 0), the square and the product by X_4."""
+    g = GENERATORS[4]
+    powers = [1]
+    for _ in range(65534):
+        powers.append(mul_py(4, powers[-1], g))
+    exp = np.array(powers + powers, dtype=np.int64)
+    log = np.zeros(1 << 16, dtype=np.int64)
+    log[exp[:65535]] = np.arange(65535)
+    inv = np.zeros(1 << 16, dtype=np.int64)
+    inv[exp[:65535]] = exp[(-np.arange(65535)) % 65535]
+    v = np.arange(256)
+    # squaring and the product by X_4 are F2-linear: one table per byte
+    sq = [np.array([square_py(4, int(x) << (8 * k)) for x in v]) for k in (0, 1)]
+    ma = [np.array([mul_alpha(4, int(x) << (8 * k)) for x in v]) for k in (0, 1)]
+    w = np.arange(1 << 16)
+    return {"log": log, "exp": exp, "invert": inv,
+            "square": (sq[0][w & 0xFF] ^ sq[1][w >> 8]).astype(np.int64),
+            "mul_alpha": (ma[0][w & 0xFF] ^ ma[1][w >> 8]).astype(np.int64)}
+
+
+@functools.lru_cache(maxsize=None)
+def b8_mul_alpha_table() -> np.ndarray:
+    """Multiplication by X_3 (0x10) in T_3, per byte."""
+    return np.array([mul_alpha(3, a) for a in range(256)], dtype=np.uint8)

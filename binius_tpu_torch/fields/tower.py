@@ -139,9 +139,12 @@ _TABLES: dict = {}
 def _table(name: str, device) -> torch.Tensor:
     key = (name, str(device))
     if key not in _TABLES:
-        arr = {"mul": scalar.b8_mul_table, "square": scalar.b8_square_table,
-               "invert": scalar.b8_invert_table}[name]()
-        _TABLES[key] = torch.from_numpy(arr.astype(np.int32)).to(device)
+        if name.endswith("16"):  # the B16 tables, int64: their entries index others
+            arr = scalar.b16_tables()[name[:-2]]
+        else:
+            arr = {"mul": scalar.b8_mul_table, "square": scalar.b8_square_table,
+                   "invert": scalar.b8_invert_table}[name]().astype(np.int32)
+        _TABLES[key] = torch.from_numpy(arr).to(device)
     return _TABLES[key]
 
 
@@ -255,10 +258,33 @@ def select(level: int, mask: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> 
     return torch.where(mask, x, y)
 
 
+def _mul16(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Product in B16 of int64 lanes through the log and exp tables."""
+    log = _table("log16", x.device)
+    r = _table("exp16", x.device)[log[x] + log[y]]
+    return torch.where((x == 0) | (y == 0), 0, r)
+
+
+def _invert_b32(a: torch.Tensor) -> torch.Tensor:
+    """invert(5) over the B16 tables: with a = a0 + a1 X_5 and
+    d = a0^2 + a0 a1 X_4 + a1^2, a^-1 = (a0 + a1 X_4) / d + (a1 / d) X_5,
+    which is also right for a1 = 0 and, with invert(0) = 0, for a = 0."""
+    sq, ma = _table("square16", a.device), _table("mul_alpha16", a.device)
+    a0, a1 = (a & 0xFFFF).long(), shr(a, 16).long()
+    dinv = _table("invert16", a.device)[sq[a0] ^ ma[_mul16(a0, a1)] ^ sq[a1]]
+    return (_mul16(a0 ^ ma[a1], dinv) | (_mul16(a1, dinv) << 16)).to(torch.int32)
+
+
 def invert(level: int, a: torch.Tensor) -> torch.Tensor:
-    """Element-wise inversion with the convention invert(0) = 0."""
+    """Element-wise inversion with the convention invert(0) = 0: a table
+    gather up to B16, B32 over the B16 tables, the norm map's recursion
+    above."""
     if level <= 3:
         return _table("invert", a.device)[a.long()]
+    if level == 4:
+        return _table("invert16", a.device)[a.long()].to(torch.int32)
+    if level == 5:
+        return _invert_b32(a)
     a0, a1 = _split(level, a)
     hi_zero = is_zero(level - 1, a1)
     d = (square(level - 1, a0) ^ mul_alpha(level - 1, mul(level - 1, a0, a1))
@@ -268,6 +294,19 @@ def invert(level: int, a: torch.Tensor) -> torch.Tensor:
     b1 = mul(level - 1, a1, dinv)
     return _join(level, select(level - 1, hi_zero, dinv, b0),
                  select(level - 1, hi_zero, torch.zeros_like(b1), b1))
+
+
+def pow_int(level: int, a: torch.Tensor, e: int) -> torch.Tensor:
+    """Every element raised to the fixed integer power e (square and
+    multiply; at levels 5..7 each product is one K1 launch)."""
+    r = full(level, batch_shape(level, a), 1, device=a.device)
+    base = a
+    while e:
+        if e & 1:
+            r = mul(level, r, base)
+        base = square(level, base)
+        e >>= 1
+    return r
 
 
 def inner_product(level: int, a: torch.Tensor, b: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -331,6 +370,36 @@ def join_from_subfield(level: int, sub_level: int, coeffs: torch.Tensor) -> torc
 # ---------------------------------------------------------------------------
 # GF(2)-linear maps through bit matrices
 # ---------------------------------------------------------------------------
+
+def _bitmatrix_tables(level: int, cols: tuple) -> np.ndarray:
+    """Per group of (up to) 8 input bits, the 256 XORs of its columns:
+    (groups, 256, n_limbs) uint32, so that the map is one gather per byte."""
+    nb = 1 << level
+    w = min(8, nb)
+    out = np.zeros((nb // w, 256, n_limbs(level)), dtype=np.uint32)
+    for g in range(nb // w):
+        for j in range(w):
+            out[g, 1 << j:2 << j] = out[g, :1 << j] ^ _int_to_limbs(level, cols[g * w + j])
+    return out
+
+
+def apply_bitmatrix(level: int, cols, x: torch.Tensor) -> torch.Tensor:
+    """The F2-linear map with column masks `cols` (one int per input bit)
+    applied to a batch of T_level elements on their device: the XOR over
+    the element's bytes of a 256-entry table per byte (canonical <-> AES <->
+    POLYVAL basis changes, `crates/field/src/linear_transformation.rs`)."""
+    key = ("bitmatrix", level, tuple(int(c) for c in cols), str(x.device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(
+            _bitmatrix_tables(level, key[2]).view(np.int32)).to(x.device)
+    tab = _TABLES[key]
+    words = x if has_limb_dim(level) else x[..., None]
+    out = torch.zeros(words.shape, dtype=torch.int32, device=x.device)
+    for g in range(tab.shape[0]):
+        limb, sh = divmod(8 * g, 32)
+        out ^= tab[g][((words[..., limb] >> sh) & 0xFF).long()]
+    return out if has_limb_dim(level) else out[..., 0]
+
 
 def to_bits(level: int, a: torch.Tensor) -> torch.Tensor:
     """T_level elements -> their 2^level bits as float64 0/1, LSB first:

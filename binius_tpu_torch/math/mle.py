@@ -1,17 +1,33 @@
 """Multilinear extensions over the boolean hypercube.
 
-The port of the parts of `binius_tpu/math/mle.py` that ring switching, the
-PIOP and FRI reach. An n-variate multilinear is stored as its 2^n
-hypercube evaluations; index bit i is variable i (variable 0 the LSB).
+The port of `binius_tpu/math/mle.py` (`multilinear_extension.rs`,
+`multilinear_query.rs`), plain PyTorch on the caller's device. An n-variate
+multilinear is stored as its 2^n hypercube evaluations; index bit i is
+variable i (variable 0 the LSB).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..fields import tower
 
 LEVEL = 7   # the query field (B128)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLE:
+    """Multilinear extension: 2^n_vars evaluations of a T_level polynomial."""
+
+    data: torch.Tensor   # the canonical layout of `level`
+    level: int
+    n_vars: int
+
+    def __post_init__(self):
+        expect = tower.elem_shape(self.level, (1 << self.n_vars,))
+        assert tuple(self.data.shape) == expect, (self.data.shape, expect)
 
 
 def eq_ind_partial_eval(level: int, point: torch.Tensor) -> torch.Tensor:
@@ -40,6 +56,15 @@ def evaluate_partial_low(level: int, data: torch.Tensor, n_vars: int, q_level: i
     out_level, d, e = _promote(level, data, q_level, q_expansion)
     d = d.reshape(tower.elem_shape(out_level, (1 << (n_vars - k), 1 << k)))
     return out_level, tower.inner_product(out_level, d, e, axis=1)
+
+
+def evaluate_partial_high(level: int, data: torch.Tensor, n_vars: int, q_level: int,
+                          q_expansion: torch.Tensor, k: int):
+    """Bind the k highest variables: out[i] = sum_j E[j] * data[(j << (n-k)) | i].
+    Returns (level, out)."""
+    out_level, d, e = _promote(level, data, q_level, q_expansion)
+    d = d.reshape(tower.elem_shape(out_level, (1 << k, 1 << (n_vars - k))))
+    return out_level, tower.inner_product(out_level, d, e[:, None], axis=0)
 
 
 def evaluate(level: int, data: torch.Tensor, n_vars: int, q_level: int, point: torch.Tensor):

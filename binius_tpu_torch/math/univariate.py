@@ -1,9 +1,10 @@
-"""Univariate evaluation domains and Lagrange interpolation.
+"""Univariate evaluation domains, Lagrange interpolation, line extrapolation.
 
 The port of `binius_tpu/math/univariate.py` without its native-C path:
-`EvaluationDomain` (host interpolation of the sumcheck round polynomials)
-and the barycentric Lagrange evaluations of the univariate-skip
-zerocheck's domains, whose scans run as tower products on a device.
+`EvaluationDomain` (host Lagrange evaluation and interpolation of the
+sumcheck round polynomials), Horner evaluation, and the barycentric
+Lagrange evaluations of the univariate-skip zerocheck's domains, whose
+scans run as tower products on a device.
 """
 
 from __future__ import annotations
@@ -36,6 +37,27 @@ class EvaluationDomain:
     @property
     def size(self) -> int:
         return len(self.points)
+
+    def lagrange_evals(self, value_level: int, z: int) -> list[int]:
+        """L_i(z) for every point i, at the value level."""
+        pts = self.points
+        out = []
+        for i, pi in enumerate(pts):
+            num, den = 1, 1
+            for j, pj in enumerate(pts):
+                if j != i:
+                    num = scalar.mul(value_level, num, z ^ pj)
+                    den = scalar.mul(value_level, den, pi ^ pj)
+            out.append(scalar.mul(value_level, num, scalar.invert(value_level, den)))
+        return out
+
+    def extrapolate(self, value_level: int, values: list[int], z: int) -> int:
+        """The interpolating polynomial of `values` evaluated at z."""
+        assert len(values) == self.size
+        acc = 0
+        for v, lz in zip(values, self.lagrange_evals(value_level, z)):
+            acc ^= scalar.mul(value_level, v, lz)
+        return acc
 
     def interpolate(self, value_level: int, values: list[int]) -> list[int]:
         """Coefficients (low -> high degree) of the interpolating polynomial."""
@@ -131,3 +153,16 @@ def lagrange_evals_np(points: tuple, z: int) -> list[int]:
     """The same Lagrange evaluations as ints, computed on the CPU (the
     verifier's host path)."""
     return tower.to_ints(7, lagrange_evals_device(points, z, "cpu"))
+
+
+def evaluate_univariate(level: int, coeffs: list[int], z: int) -> int:
+    """Horner evaluation, coefficients low -> high."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = scalar.mul(level, acc, z) ^ c
+    return acc
+
+
+def extrapolate_line_scalar(level: int, x0: int, x1: int, z: int) -> int:
+    """x0 + (x1 - x0) * z on the host."""
+    return x0 ^ scalar.mul(level, x0 ^ x1, z)

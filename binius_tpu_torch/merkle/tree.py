@@ -1,16 +1,21 @@
-"""Binary Merkle tree vector commitment over Grøstl-256.
+"""Binary Merkle tree vector commitment over Grøstl-256 or Vision Mark-32.
 
 Counterpart of `binius_tpu/merkle/tree.py`: leaves are byte blobs
-(canonically serialized field elements) hashed with Grøstl-256; internal
-nodes use the output-transform 2-to-1 compression. `MerkleTree` is the host
-tree (numpy layers); `commit_codeword_device` builds every layer, leaf to
-root, on the codeword's device (K5 and K6 on the card) and copies the top
-layers to the host in one copy. The prover hashes nothing on the host.
+(canonically serialized field elements) hashed with the scheme's digest;
+internal nodes use its 2-to-1 compression (`merkle_tree/scheme.rs`: Grøstl-
+256 with the output-transform compression, the default, or Vision Mark-32).
+`MerkleTree` is the host tree (numpy layers, each level one batch of the
+scheme's compression); `commit_codeword_device` builds every layer of a
+Grøstl tree, leaf to root, on the codeword's device (K5 and K6 on the card)
+and copies the top layers to the host in one copy. The prover hashes
+nothing on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -29,21 +34,47 @@ def hash_leaves(blobs: np.ndarray) -> np.ndarray:
     return groestl.hash_leaves_np(blobs)
 
 
+@dataclasses.dataclass(frozen=True)
+class HashScheme:
+    """A Merkle digest family: batched leaf hashing and 2-to-1 compression
+    (the reference's `MerkleTreeScheme` hash parameters, Grøstl-256 or
+    Vision Mark-32, `merkle_tree/scheme.rs`)."""
+
+    name: str
+    hash_leaves: Callable      # (N, L) uint8 -> (N, 32) uint8
+    compress_pairs: Callable   # (N, 64) uint8 -> (N, 32) uint8
+
+
+GROESTL_SCHEME = HashScheme("groestl256", hash_leaves, groestl.compress_pairs)
+
+
+@functools.lru_cache(maxsize=None)
+def vision_scheme(device=None) -> HashScheme:
+    """Vision Mark-32 (`hash/vision.py`), its batches on CUDA unless
+    `device` names another."""
+    from ..hash import vision
+
+    return HashScheme("vision32", functools.partial(vision.digest_many, device=device),
+                      vision.Vision32Compression(device).compress_batch)
+
+
 @dataclasses.dataclass
 class MerkleTree:
     """All layers, layer[0] = leaf digests (N, 32) ... layer[d] = root (1, 32)."""
 
     layers: list
+    scheme: HashScheme = GROESTL_SCHEME
 
     @staticmethod
-    def build(leaf_digests: np.ndarray) -> "MerkleTree":
+    def build(leaf_digests: np.ndarray, scheme: HashScheme = GROESTL_SCHEME) -> "MerkleTree":
         assert leaf_digests.ndim == 2 and leaf_digests.shape[1] == 32
         n = leaf_digests.shape[0]
         assert n & (n - 1) == 0, "leaf count must be a power of two"
         layers = [np.ascontiguousarray(leaf_digests)]
         while layers[-1].shape[0] > 1:
-            layers.append(np.ascontiguousarray(groestl.compress_pairs(layers[-1].reshape(-1, 64))))
-        return MerkleTree(layers)
+            layers.append(np.ascontiguousarray(
+                scheme.compress_pairs(layers[-1].reshape(-1, 64))))
+        return MerkleTree(layers, scheme)
 
     @property
     def root(self) -> bytes:
@@ -65,13 +96,28 @@ class MerkleTree:
         return [self.branch(i, to_layer) for i in indices]
 
 
-def verify_branch(root: bytes, index: int, leaf_digest: bytes, branch: list[bytes]) -> bool:
+def _branch_top(index: int, leaf_digest: bytes, branch: list[bytes],
+                scheme: HashScheme) -> bytes:
+    """The digest that the leaf and its sibling path hash up to."""
     cur = np.frombuffer(leaf_digest, dtype=np.uint8)
     for k, sib in enumerate(branch):
         s = np.frombuffer(sib, dtype=np.uint8)
         pair = np.concatenate([cur, s] if ((index >> k) & 1) == 0 else [s, cur])
-        cur = groestl.compress_pairs(pair[None, :])[0]
-    return cur.tobytes() == root
+        cur = np.asarray(scheme.compress_pairs(pair[None, :]))[0]
+    return cur.tobytes()
+
+
+def verify_branch(root: bytes, index: int, leaf_digest: bytes, branch: list[bytes],
+                  scheme: HashScheme = GROESTL_SCHEME) -> bool:
+    return _branch_top(index, leaf_digest, branch, scheme) == root
+
+
+def verify_branch_to_layer(layer: np.ndarray, index: int, leaf_digest: bytes,
+                           branch: list[bytes], scheme: HashScheme = GROESTL_SCHEME) -> bool:
+    """Verify against a cached internal layer (the reference's optimal
+    verification layer, `merkle_tree/scheme.rs:48-50`)."""
+    return (_branch_top(index, leaf_digest, branch, scheme)
+            == layer[index >> len(branch)].tobytes())
 
 
 def _digests_to_np(dig: torch.Tensor) -> np.ndarray:

@@ -251,9 +251,10 @@ def np_elem_to_int(cw_np: np.ndarray, i: int) -> int:
     return int(sum(int(x) << (32 * k) for k, x in enumerate(cw_np[i])))
 
 
-def _to_np(codeword: torch.Tensor) -> np.ndarray:
+def codeword_to_numpy(codeword: torch.Tensor) -> np.ndarray:
     """(N, 4) int32 codeword -> (N, 4) uint32 host copy."""
     return codeword.detach().cpu().contiguous().numpy().view(np.uint32)
+
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +313,7 @@ class FRIFolder:
         assert self.curr_round == self.n_rounds, "must execute all fold rounds"
         p = self.params
         advice = transcript.decommitment()
-        advice.write_bytes(_to_np(self.codewords[-1]).astype("<u4").tobytes())
+        advice.write_bytes(codeword_to_numpy(self.codewords[-1]).astype("<u4").tobytes())
         for tree, depth in zip(self.trees, p.vcs_optimal_layers_depths()):
             advice.write_bytes(tree.layer_np(tree.depth - depth).tobytes())
         # decommitment writes never touch the challenger, so sampling every
@@ -338,7 +339,7 @@ class FRIFolder:
                 idx = [i >> arity for i in idx]
             cw = self.codewords[oracle]
             sel = torch.tensor(idx, dtype=torch.long, device=cw.device)
-            rows = _to_np(cw.reshape(cw.shape[0] >> arity, -1)[sel])
+            rows = codeword_to_numpy(cw.reshape(cw.shape[0] >> arity, -1)[sel])
             tree = self.trees[oracle]
             branches = tree.branches_many(idx, tree.depth - depths[oracle])
             for q in range(len(indices)):

@@ -112,6 +112,14 @@ class ExpWitness:
         return ExpWitness(level, n_vars, layers, list(bit_datas), (level, bdata))
 
 
+class StaticExpWitness(ExpWitness):
+    """The static-base constructor under its earlier name."""
+
+    @staticmethod
+    def compute(n_vars: int, base: int, bit_datas: list, level: int = LEVEL) -> ExpWitness:
+        return ExpWitness.static(n_vars, base, bit_datas, level)
+
+
 # The layer compositions are shared across layers and claims; the static
 # constant C_j enters as a constant multilinear, whose claimed evaluation
 # the verifier checks against C_j.

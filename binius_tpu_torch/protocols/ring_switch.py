@@ -41,6 +41,20 @@ _M64 = (1 << 64) - 1
 # Tensor algebra over (B_l, B128) on the host: (2^kappa, 2) uint64 pairs
 # ---------------------------------------------------------------------------
 
+def coord(level: int, e: int, j: int) -> int:
+    """The j-th B_level coordinate of a B128 element (the basis of bit slices)."""
+    w = 1 << level
+    return (e >> (j * w)) & ((1 << w) - 1)
+
+
+def from_coords(level: int, coords: list[int]) -> int:
+    w = 1 << level
+    out = 0
+    for j, c in enumerate(coords):
+        out |= c << (j * w)
+    return out
+
+
 def _ints_to_pairs(elems: list) -> np.ndarray:
     m = np.empty((len(elems), 2), dtype=np.uint64)
     for i, e in enumerate(elems):

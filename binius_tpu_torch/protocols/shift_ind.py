@@ -191,6 +191,29 @@ def partial_mle_batch(variants: list[str], b: int, offsets: list[int],
     return out
 
 
+def partial_mle(variant: str, b: int, o: int, x_point: list[int], device=None) -> torch.Tensor:
+    """The multilinear over y of shift_ind(x_point, y): (2^b, 4) B128."""
+    return partial_mle_batch([variant], b, [o], [x_point], device)[0]
+
+
+def apply_shift_ints(variant: str, b: int, o: int, vals: list[int]) -> list[int]:
+    """The shifted column of `vals` (Python ints), shifted within each block
+    of 2^b entries: the reference semantics on the host."""
+    size = 1 << b
+    out = [0] * len(vals)
+    for blk in range(0, len(vals), size):
+        for i in range(size):
+            if variant == CIRCULAR_LEFT:
+                out[blk + i] = vals[blk + (i - o) % size]
+            elif variant == LOGICAL_RIGHT:
+                out[blk + i] = vals[blk + i + o] if i + o < size else 0
+            elif variant == LOGICAL_LEFT:
+                out[blk + i] = vals[blk + i - o] if i >= o else 0
+            else:
+                raise ValueError(variant)
+    return out
+
+
 def apply_shift_device(level: int, variant: str, b: int, o: int,
                        data: torch.Tensor) -> torch.Tensor:
     """The shifted column of `data` (canonical layout at `level`, not

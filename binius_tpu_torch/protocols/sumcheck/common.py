@@ -63,3 +63,10 @@ def eval_coeffs(coeffs: list[int], x: int) -> int:
         acc = scalar.mul(LEVEL, acc, x) ^ c
     return acc
 
+
+def batch_weighted_sum(claims_sums: list[int], batch_coeffs: list[int]) -> int:
+    """sum_i c_i s_i: the batched claim of several sumchecks."""
+    acc = 0
+    for s, c in zip(claims_sums, batch_coeffs):
+        acc ^= scalar.mul(LEVEL, c, s)
+    return acc

@@ -1,7 +1,8 @@
 """Dual-tape proof transcript (Fiat-Shamir).
 
-The port's copy of `binius_tpu/transcript/transcript.py` (Grøstl-256
-challenger only), which mirrors `crates/core/src/transcript/mod.rs`: one combined FIFO byte tape;
+The port's copy of `binius_tpu/transcript/transcript.py` (a Grøstl-256
+challenger unless `hash_name` names "sha256"), which mirrors
+`crates/core/src/transcript/mod.rs`: one combined FIFO byte tape;
 ``message`` data is written/read AND observed into the challenger,
 ``decommitment`` (advice) data is written/read without observation, and
 ``observe`` absorbs without touching the tape. Field sampling deserializes
@@ -73,9 +74,9 @@ class _Reader:
 
 
 class ProverTranscript:
-    def __init__(self):
+    def __init__(self, hash_name: str = "groestl256"):
         self._tape = bytearray()
-        self._challenger = HasherChallenger()
+        self._challenger = HasherChallenger(hash_name)
 
     def message(self) -> _Writer:
         return _Writer(self, observe=True, write=True)
@@ -104,10 +105,10 @@ class ProverTranscript:
 
 
 class VerifierTranscript:
-    def __init__(self, proof: bytes):
+    def __init__(self, proof: bytes, hash_name: str = "groestl256"):
         self._tape = proof
         self._pos = 0
-        self._challenger = HasherChallenger()
+        self._challenger = HasherChallenger(hash_name)
 
     def message(self) -> _Reader:
         return _Reader(self, observe=True)

@@ -7,7 +7,8 @@ Merkle-tree inclusion paths (packed and selected columns), of the M3
 gadgets u32 subtraction, schoolbook u32 multiplication, the barrel
 shifter and u32 division, and the u32_add commit and opening on their
 own, on one NVIDIA H100, and check them, with the constraint systems'
-wire formats and the prover's trace.
+wire formats and the prover's trace; then a Vision Mark-32 Merkle tree over
+the opening's codeword and the AES and POLYVAL bases on the card.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -46,6 +47,29 @@ wire formats and the prover's trace.
    split.
    (The commit and the opening are the earlier slices' main paths, each
    driven on its own with its own counts.)
+5b. The Vision Mark-32 tree, the reference's other Merkle scheme: the
+   opening run once more, recording its commit's codeword and its FRI query
+   indices; the codeword's leaves (`fri.leaf_blobs` at the commit's
+   log_coset: 2^19 leaves of 256 bytes at 2^22 rows) hashed by
+   `vision.digest_many` and the tree built by `MerkleTree.build(...,
+   vision_scheme())`: the first build, one build counted (K1 alone, one
+   launch per MDS layer per batch: 16 x (5 + 2 x 19)) with its peak device
+   memory, and the warm time (median of 3: the counted build and two more)
+   split into leaves and levels, with permutations per second; the same
+   tree through K1's plain version `bitslice.mul` on the card (in batches
+   of `PLAIN_VISION_STATES` rows), every layer byte-equal; 64 sampled
+   leaves and 64 sampled pairs at three levels against the host sponge
+   (`vision.digest`, `permute_scalar`); every query's branch hashed up to
+   the root, one batch per level, and `verify_branch` and
+   `verify_branch_to_layer` (to FRI's optimal layer) accepting two of them
+   and rejecting a flipped byte; at 2^16 rows the root, on K1 and on the
+   plain path, against the JAX package's (`GOLDEN_VISION_ROOT_16`).
+5c. The AES and POLYVAL bases on 2^22 random B128 elements:
+   `aes.convert_device` to AES and back (the identity; `canonical_to_aes`
+   on 256 samples), `tower.apply_bitmatrix` with the canonical -> POLYVAL
+   matrix (`canonical_to_polyval` on 256 samples), and phi(a * b) with a * b
+   from K1 (one launch) against `polyval_mul(phi(a), phi(b))` on 256
+   samples; each step's time on its first run.
 6. The NTT's small shapes (fault C1): forward and inverse transforms of 16,
    32, 64 and 128 B128 elements (B32 twiddles, a coset of a larger domain)
    and a B8 transform of the zerocheck's shape (k = 7 stages over 5 rows)
@@ -121,7 +145,8 @@ wire formats and the prover's trace.
    `GOLDEN_CIRCUITS`) against the sha256 of the JAX package's
    (`GOLDEN_SERIALIZE`).
 9. One JSON line for the kernels (launches: the thirteen proofs' counted
-   runs together, and per proof), then, as the last line,
+   runs and the Vision tree's counted build together, and per proof), then,
+   as the last line,
    {"ok": true, "device": {...}}.
 
 Every failure raises: no phase is caught. Without a CUDA device the script
@@ -143,6 +168,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # The JAX package's `piop.commit` root for u32_add_columns(16, seed=0),
@@ -150,6 +176,12 @@ import torch
 #   python scripts/port_golden_root.py --log-rows 16 --seed 0
 GOLDEN_LOG_ROWS, GOLDEN_SEED = 16, 0
 GOLDEN_ROOT_16 = "5ba7dfef9aaac4e68954742aec76cae848d679dbe787f5a4957283dfacf08804"
+# The JAX package's Vision Mark-32 root over the same codeword's leaves
+# (`fri.leaf_blobs` at the commit's log_coset: 2^13 leaves of 256 bytes;
+# `vision.digest_many`, then `MerkleTree.build(..., vision_scheme())`),
+# computed on the CPU with binius_tpu (jax 0.9.0; 146.1 s) by
+#   python scripts/port_golden_root.py --log-rows 16 --seed 0 --scheme vision
+GOLDEN_VISION_ROOT_16 = "3ee397d94bbe4c9205e49e783285db2a129b59ace06ad558520524a02c32bdee"
 # The JAX package's opening of the same commitment (u32_add_instance(16, 0):
 # root, ring_switch.prove, piop.prove), computed on the CPU with binius_tpu
 # (jax 0.9.0) by
@@ -497,6 +529,25 @@ def check_trace(path: str, times: dict) -> None:
                                  f"phase of {v * 1e3:.3f} ms")
     log(f"trace {os.path.relpath(path)}: {len(events)} events, a span per phase within 1 ms "
         f"of its time")
+
+
+# the Vision trees' plain rebuild runs its permutations in batches of at
+# most this many states: the plain network's stacked temporaries take about
+# 90 KB per state
+PLAIN_VISION_STATES = 1 << 16
+
+
+def vision_tree(blobs, scheme, chunk=None) -> list:
+    """The layers of the Vision tree over `blobs` ((N, L) uint8), leaves
+    first: `digest_many`, then `MerkleTree.build` (one `compress_pairs` batch
+    per level); with `chunk`, each batch in pieces of at most `chunk` rows."""
+    from binius_tpu_torch.merkle.tree import HashScheme, MerkleTree
+
+    if chunk:
+        def pieces(fn):
+            return lambda x: np.concatenate([fn(x[i:i + chunk]) for i in range(0, len(x), chunk)])
+        scheme = HashScheme(scheme.name, pieces(scheme.hash_leaves), pieces(scheme.compress_pairs))
+    return MerkleTree.build(scheme.hash_leaves(blobs), scheme).layers
 
 
 class Phases:
@@ -1054,6 +1105,211 @@ def main() -> int:
             args.log_rows, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
     phases.done("opening")
 
+    # 5b. a Vision Mark-32 tree over the opening's codeword: the reference's
+    # other Merkle scheme (`merkle_tree/scheme.rs`), whose MDS layer is one
+    # B32 product per permutation and layer through K1. The opening is run
+    # once more to record its commit's codeword and its FRI query indices.
+    from binius_tpu_torch.fields import aes, isomorphism
+    from binius_tpu_torch.hash import vision
+    from binius_tpu_torch.merkle.tree import (MerkleTree, verify_branch, verify_branch_to_layer,
+                                              vision_scheme)
+
+    scheme_v = vision_scheme()
+    recorded = {}
+    fri_commit_0, query_openings = fri.fri_commit, fri.FRIFolder._query_openings
+
+    def recording_fri_commit(params_, message, device=None):
+        cw_, tree_ = fri_commit_0(params_, message, device)
+        recorded.setdefault("codeword", cw_)
+        return cw_, tree_
+
+    def recording_queries(self, indices):
+        recorded["queries"] = list(indices)
+        return query_openings(self, indices)
+
+    fri.fri_commit, fri.FRIFolder._query_openings = recording_fri_commit, recording_queries
+    try:
+        if open_commitment(inst) != proof:
+            raise AssertionError("opening: proof bytes differ between runs")
+    finally:
+        fri.fri_commit, fri.FRIFolder._query_openings = fri_commit_0, query_openings
+    cw_v, queries = recorded["codeword"], recorded["queries"]
+    blobs = fri.leaf_blobs(cw_v.cpu().numpy().view(np.uint32), params.log_coset)
+    if blobs.shape != (n_leaves, blob_len) or len(queries) != params.n_test_queries:
+        raise AssertionError(f"vision: leaves {blobs.shape}, {len(queries)} queries")
+    n_blocks = blob_len // vision.RATE_AS_U8 + 1
+    depth = n_leaves.bit_length() - 1
+    k1_tree = 16 * (n_blocks + 2 * depth)   # one K1 launch per MDS layer per batch
+    n_perms = n_leaves * n_blocks + (n_leaves - 1) * 2
+    log(f"vision: the opening's codeword, {cw_v.shape[0]} B128 elements, log_coset "
+        f"{params.log_coset}: {n_leaves} leaves of {blob_len} B ({n_blocks} permutations "
+        f"each), {depth} levels; {len(queries)} FRI query indices")
+    t0 = time.perf_counter()
+    layers_v = vision_tree(blobs, scheme_v)
+    torch.cuda.synchronize()
+    t_first_v = time.perf_counter() - t0
+    # (a) one build counted, then warm: median of 3 (the counted one and two more)
+    splits_v = {"total": [], "leaves": [], "levels": []}
+    for rep in range(3):
+        if rep == 0:
+            torch.cuda.reset_peak_memory_stats()
+            cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves_v = scheme_v.hash_leaves(blobs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tree_v = MerkleTree.build(leaves_v, scheme_v)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if rep == 0:
+            counts_v = dict(cuda_lib.launches)
+            peak_v = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k, v in (("total", t2 - t0), ("leaves", t1 - t0), ("levels", t2 - t1)):
+            splits_v[k].append(v * 1e3)
+        if any(not np.array_equal(a, b) for a, b in zip(tree_v.layers, layers_v)):
+            raise AssertionError("vision: tree layers differ between builds")
+    if counts_v != {**dict.fromkeys(cuda_lib.KERNELS, 0), "k1_tower_mul": k1_tree}:
+        raise AssertionError(f"vision tree: launches {counts_v}, want K1 {k1_tree} alone")
+    split_v = {k: statistics.median(v) for k, v in splits_v.items()}
+    log(f"launches on the vision tree: {counts_v}")
+    log("vision tree 2^%d leaves: first build %.1f ms; warm, median of 3 (ms): %s; peak device "
+        "memory %.2f GiB; %d permutations, %.3g permutations/s warm" % (
+            depth, t_first_v * 1e3, ", ".join(f"{k} {v:.3f}" for k, v in split_v.items()),
+            peak_v, n_perms, n_perms / (split_v["total"] / 1e3)))
+    # (b) the same tree with K1's plain version on the card, byte-equal in
+    # every layer (in batches of PLAIN_VISION_STATES rows)
+    k1_mul = bitslice_cuda.mul
+    bitslice_cuda.mul = bitslice.mul
+    try:
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        plain_v = vision_tree(blobs, scheme_v, chunk=PLAIN_VISION_STATES)
+        torch.cuda.synchronize()
+        t_plain_v = time.perf_counter() - t0
+    finally:
+        bitslice_cuda.mul = k1_mul
+    if cuda_lib.launches["k1_tower_mul"]:
+        raise AssertionError("vision: K1 launched on the plain path")
+    for k, (a, b) in enumerate(zip(layers_v, plain_v)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"vision: layer {k}: K1 != plain bitslice.mul")
+    log(f"vision tree through the plain bitslice.mul on the card ({t_plain_v:.1f} s): every "
+        f"layer byte-equal to K1's; root {tree_v.root.hex()}")
+    # (c) sampled leaves and pairs at three levels against `permute_scalar`
+    # (the host sponge, `vision.digest`)
+    rng_v = random.Random(args.seed)
+    for i in rng_v.sample(range(n_leaves), 64):
+        if vision.digest(blobs[i].tobytes()) != layers_v[0][i].tobytes():
+            raise AssertionError(f"vision: leaf {i} != the host sponge")
+    levels_v = (1, depth // 2, depth - 6)
+    for k in levels_v:
+        for j in rng_v.sample(range(len(layers_v[k])), 64):
+            pair = layers_v[k - 1][2 * j].tobytes() + layers_v[k - 1][2 * j + 1].tobytes()
+            if vision.digest(pair) != layers_v[k][j].tobytes():
+                raise AssertionError(f"vision: level {k} node {j} != the host sponge")
+    log(f"vision: 64 sampled leaves and 64 sampled pairs at levels {levels_v} = "
+        f"vision.digest (permute_scalar)")
+    # (d) the opening's query branches: all of them hashed up to the root
+    # level by level (one batch per level), and `verify_branch` /
+    # `verify_branch_to_layer` (to FRI's optimal layer) on a few, each
+    # rejecting a flipped byte
+    idx = np.array(queries)
+    cur = layers_v[0][idx]
+    for k in range(depth):
+        sib = layers_v[k][(idx >> k) ^ 1]
+        left = ((idx >> k) & 1)[:, None] == 0
+        cur = scheme_v.compress_pairs(np.concatenate([np.where(left, cur, sib),
+                                                      np.where(left, sib, cur)], axis=1))
+    if any(row.tobytes() != tree_v.root for row in cur):
+        raise AssertionError("vision: a query branch does not hash to the root")
+    opt = params.vcs_optimal_layers_depths()[0]
+    to_layer = depth - opt
+    for q in queries[:2]:
+        leaf = layers_v[0][q].tobytes()
+        if not (verify_branch(tree_v.root, q, leaf, tree_v.branch(q), scheme_v)
+                and verify_branch_to_layer(tree_v.layers[to_layer], q, leaf,
+                                           tree_v.branch(q, to_layer), scheme_v)):
+            raise AssertionError(f"vision: the branch of query {q} does not verify")
+    q = queries[0]
+    bad = bytearray(layers_v[0][q].tobytes())
+    bad[7] ^= 1
+    if (verify_branch(tree_v.root, q, bytes(bad), tree_v.branch(q), scheme_v)
+            or verify_branch_to_layer(tree_v.layers[to_layer], q, bytes(bad),
+                                      tree_v.branch(q, to_layer), scheme_v)):
+        raise AssertionError("vision: a leaf with a flipped byte verified")
+    log(f"vision: the {len(queries)} query branches hash to the root; verify_branch and "
+        f"verify_branch_to_layer (layer {to_layer}, {2 ** opt} digests) accept queries "
+        f"{queries[:2]} and reject a flipped byte")
+    # (e) the JAX package's Vision root at 2^16 rows, kernel and plain paths
+    g_cw = piop.commit(g_inst["params"], g_inst["meta"], g_inst["packed"])[0]
+    g_blobs = fri.leaf_blobs(g_cw.cpu().numpy().view(np.uint32), g_inst["params"].log_coset)
+    g_root_k = vision_tree(g_blobs, scheme_v)[-1][0].tobytes().hex()
+    bitslice_cuda.mul = bitslice.mul
+    try:
+        g_root_p = vision_tree(g_blobs, scheme_v, chunk=PLAIN_VISION_STATES)[-1][0].tobytes().hex()
+    finally:
+        bitslice_cuda.mul = k1_mul
+    if not g_root_k == g_root_p == GOLDEN_VISION_ROOT_16:
+        raise AssertionError(f"vision golden: roots {g_root_k} (K1), {g_root_p} (plain) != "
+                             f"{GOLDEN_VISION_ROOT_16}")
+    log(f"vision root 2^{GOLDEN_LOG_ROWS} rows ({g_blobs.shape[0]} leaves), seed {GOLDEN_SEED}: "
+        f"{g_root_k} on K1 and on the plain path (= JAX golden)")
+    del recorded, cw_v, blobs, layers_v, plain_v, tree_v, leaves_v, cur
+    phases.done("vision tree")
+
+    # 5c. the AES and POLYVAL bases on 2^22 random B128 elements: the AES
+    # conversion both ways, the POLYVAL basis change, and the isomorphism
+    # carrying K1's products to POLYVAL products, each on 256 samples
+    # against the host conversions
+    n_f = 1 << 22
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_f, 4), dtype=torch.int32, device=dev,
+                      generator=gen)
+    sample = rng_v.sample(range(n_f >> 1), 256)
+    sel = torch.tensor(sample, device=dev)
+    xs = tower.to_ints(7, x[sel])
+    times_f = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_aes = aes.convert_device(7, x, to_canonical=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = aes.convert_device(7, x_aes, to_canonical=True)
+    torch.cuda.synchronize()
+    times_f["aes"] = (time.perf_counter() - t0) * 1e3
+    times_f["aes one way"] = (t1 - t0) * 1e3
+    if not torch.equal(back, x):
+        raise AssertionError("aes: canonical -> AES -> canonical is not the identity")
+    if tower.to_ints(7, x_aes[sel]) != [aes.canonical_to_aes(7, v) for v in xs]:
+        raise AssertionError("aes: convert_device != canonical_to_aes")
+    phi = isomorphism.canonical_to_polyval_matrix()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_pv = tower.apply_bitmatrix(7, phi, x)
+    torch.cuda.synchronize()
+    times_f["polyval"] = (time.perf_counter() - t0) * 1e3
+    if tower.to_ints(7, x_pv[sel]) != [isomorphism.canonical_to_polyval(v) for v in xs]:
+        raise AssertionError("polyval: apply_bitmatrix != canonical_to_polyval")
+    a_f, b_f = x[:n_f >> 1], x[n_f >> 1:]
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ab_pv = tower.apply_bitmatrix(7, phi, tower.mul(7, a_f, b_f))
+    torch.cuda.synchronize()
+    times_f["product and polyval"] = (time.perf_counter() - t0) * 1e3
+    if cuda_lib.launches["k1_tower_mul"] != 1:
+        raise AssertionError(f"polyval: K1 launched {cuda_lib.launches['k1_tower_mul']} times")
+    pa = tower.to_ints(7, x_pv[sel])
+    pb = tower.to_ints(7, x_pv[sel + (n_f >> 1)])
+    if tower.to_ints(7, ab_pv[sel]) != [isomorphism.polyval_mul(u, v) for u, v in zip(pa, pb)]:
+        raise AssertionError("polyval: phi(a * b) != phi(a) * phi(b)")
+    log(f"aes and polyval, 2^{n_f.bit_length() - 1} B128 elements, 256 samples each: AES both "
+        f"ways = identity and = canonical_to_aes; POLYVAL = canonical_to_polyval; phi(a * b) "
+        f"(K1, one launch, 2^{n_f.bit_length() - 2} products) = polyval_mul(phi(a), phi(b)); ms "
+        f"(first run): " + ", ".join(f"{k} {v:.3f}" for k, v in times_f.items()))
+    del x, x_aes, back, x_pv, ab_pv, a_f, b_f
+    phases.done("aes and polyval")
+
     # 6. the NTT's small shapes take the packed stage loop on the card (C1)
     from binius_tpu_torch.ntt import additive_ntt
     cpu = torch.device("cpu")
@@ -1361,6 +1617,7 @@ def main() -> int:
                 or circuits.CARD_SIZE[circuit])
         proof_launches[circuit] = drive_proof(circuit, size)
         phases.done(f"proof {circuit}")
+    proof_launches["vision_tree"] = counts_v
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in proof_launches.values())
         r["launches_by_proof"] = {c: v[r["name"]] for c, v in proof_launches.items()}
