@@ -1,7 +1,8 @@
 """Top-level constraint-system prover and verifier.
 
 The port of `binius_tpu/constraint_system/prove.py`. Proving runs these
-phases on one device (CUDA unless the caller names another):
+phases on one device (CUDA unless the caller names another), or on every
+rank of a mesh (`prove(..., mesh=)`, see its docstring):
 
   1. setup: observe the constraint-system digest;
   2. commit: pack the committed columns, RS-encode and Merkle-commit them,
@@ -40,6 +41,7 @@ import torch
 from ..device import resolve
 from ..fields import scalar, tower
 from ..math.arith import ArithExpr, CompositionPoly
+from ..parallel import mesh as mesh_mod
 from ..protocols import evalcheck, gkr_gpa, piop, ring_switch
 from ..protocols import fri as fri_mod
 from ..protocols.sumcheck import univariate_zerocheck as uzc
@@ -338,14 +340,30 @@ def _ring_switch_claims(system, layout, committed_claims):
 
 
 def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
-          log_inv_rate: int = 1, table_sizes: list = None, device=None) -> bytes:
+          log_inv_rate: int = 1, table_sizes: list = None, device=None, mesh=None,
+          group_claims: bool | None = None, min_shard_elems: int | None = None) -> bytes:
     """witness: oracle id -> (level, tensor) for the committed and virtual
     oracles (`m3.builder.witness.WitnessIndex.to_core_witness`). Runs on
     CUDA unless `device` names another; the witness moves there.
     `boundaries`: the statement's channel boundaries; `table_sizes`: the
     M3 tables' row counts, written as the proof's first message (the M3
-    verifier reads them back, `peek_table_sizes`)."""
-    dev = resolve(device)
+    verifier reads them back, `peek_table_sizes`).
+
+    `group_claims`: prove same-structure zerocheck claims as one grouped
+    prover in stage 2 (None: on CUDA, off on the CPU); the bytes are the
+    same either way.
+
+    `mesh` (`parallel.mesh.make_mesh()`, every rank calling `prove` with the
+    same arguments): the witness columns are placed with
+    `mesh.put_row_sharded` (columns of fewer than `min_shard_elems` rows,
+    default `mesh.MIN_SHARD_ELEMS`, replicate), the proof runs on the mesh's
+    device, and every rank returns the proof, byte-equal to the one-device
+    proof. Sharded: the commit's Reed-Solomon encoding (`ntt.sharded_ntt`)
+    and Merkle leaves and subtrees, and the zerocheck (stage 1, the
+    skipped fold, stage 2 until log2 N variables are left, stage 3's
+    projection). The other phases read the columns gathered once
+    (`mesh.pull_local`) and run whole on every rank."""
+    dev = mesh.device if mesh is not None else resolve(device)
     transcript = ProverTranscript()
     timer = _PhaseTimer(dev, transcript)
     _observe_setup(transcript, system, boundaries)
@@ -356,6 +374,13 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
             w.write_u64(size)
     system = _working_copy(system)
     witness = {oid: (lvl, d.to(dev)) for oid, (lvl, d) in witness.items()}
+    placed = witness
+    if mesh is not None and mesh.size > 1:
+        min_elems = mesh_mod.MIN_SHARD_ELEMS if min_shard_elems is None else min_shard_elems
+        placed = {oid: (lvl, mesh_mod.put_row_sharded(mesh, lvl, d, min_elems))
+                  for oid, (lvl, d) in sorted(witness.items())}
+        # the gathered columns that the phases run whole on every rank read
+        witness = {oid: (lvl, mesh_mod.pull_local(d)) for oid, (lvl, d) in placed.items()}
 
     timer.phase("exp")   # the layer witnesses and result columns, which the commit needs
     exp_witnesses = exp_mod.make_exp_witnesses(system, witness)
@@ -374,7 +399,8 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
             packed, pv = piop.pack_multilinear(level, data, o.n_vars)
         assert pv == packed_vars
         packed_mles.append((packed, pv))
-    codeword, tree, _ = piop.commit(fri_params, layout.commit_meta, packed_mles, dev)
+    codeword, tree, _ = piop.commit(fri_params, layout.commit_meta, packed_mles, dev,
+                                    mesh if mesh is not None and mesh.size > 1 else None)
     transcript.message().write_bytes(tree.root)
 
     timer.phase("exp")
@@ -387,8 +413,8 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
     skip = _zerocheck_skip(system)
     if skip > 0:
         sets, claims = _zerocheck_claims(system, ascending=True)
-        out = uzc.batch_prove(claims, [[witness[oid] for oid in s.oracle_ids] for s in sets],
-                              transcript, skip)
+        out = uzc.batch_prove(claims, [[placed[oid] for oid in s.oracle_ids] for s in sets],
+                              transcript, skip, group_claims=group_claims)
         ec_claims = _skip_evalcheck_claims(sets, out)
     else:
         sets, claims = _zerocheck_claims(system)

@@ -12,13 +12,14 @@ from ...constraint_system import prove as csp
 
 
 def m3_prove(m3_system, witness_index, boundaries: list = (), log_inv_rate: int = 1,
-             device=None) -> bytes:
+             device=None, group_claims: bool | None = None) -> bytes:
     """Prove an M3 system at its witness index's table sizes (on CUDA
-    unless `device` names another)."""
+    unless `device` names another; `group_claims` as `csp.prove`'s)."""
     sizes = witness_index.table_sizes
     core, omap = m3_system.compile_sizes(sizes)
     witness = witness_index.to_core_witness(core, omap, device)
-    return csp.prove(core, witness, boundaries, log_inv_rate, table_sizes=sizes, device=device)
+    return csp.prove(core, witness, boundaries, log_inv_rate, table_sizes=sizes, device=device,
+                     group_claims=group_claims)
 
 
 def m3_verify(m3_system, proof: bytes, boundaries: list = (), log_inv_rate: int = 1,

@@ -101,7 +101,7 @@ def _bits_chunk(level: int, stack: torch.Tensor, j0: int, jc: int, keep: int) ->
 
 
 def batched_evaluate_partial_high(level: int, stack: torch.Tensor, n_vars: int,
-                                  eq: torch.Tensor, keep: int):
+                                  eq: torch.Tensor, keep: int, mesh=None):
     """Bind the high n_vars - keep variables of k stacked multilinears to a
     B128 query given as its eq expansion (2^(n_vars - keep), 4):
     out[m, i] = sum_j eq[j] * stack[m, (j << keep) | i], (k, 2^keep, 4) B128.
@@ -109,7 +109,16 @@ def batched_evaluate_partial_high(level: int, stack: torch.Tensor, n_vars: int,
     `level` may be `tower.P1` (stack of bit-packed words). For B1 data the
     sum is a GF(2) matrix product of the data's bit matrix with eq's bits,
     taken as exact float64 counts in row chunks; other levels scale eq by
-    the subfield data."""
+    the subfield data.
+
+    `mesh` (`parallel.mesh.Mesh`): the stack is this rank's contiguous
+    block of rows (n_vars its own variables) and eq this rank's rows of the
+    expansion; the sum over j splits over the ranks, so the partial sums
+    are XOR-reduced over them (`mesh.xor_all_reduce`)."""
+    if mesh is not None:
+        from ..parallel import mesh as mesh_mod
+        lvl, part = batched_evaluate_partial_high(level, stack, n_vars, eq, keep)
+        return lvl, mesh_mod.xor_all_reduce(mesh, part)
     k = stack.shape[0]
     kh = n_vars - keep
     if level in (0, tower.P1):

@@ -8,7 +8,11 @@ internal nodes use its 2-to-1 compression (`merkle_tree/scheme.rs`: Grøstl-
 scheme's compression); `commit_codeword_device` builds every layer of a
 Grøstl tree, leaf to root, on the codeword's device (K5 and K6 on the card)
 and copies the top layers to the host in one copy. The prover hashes
-nothing on the host.
+nothing on the host. A codeword sharded over a mesh (`parallel.mesh.RowShard`)
+is committed rank by rank: each rank hashes its leaves and its subtree,
+the layers are gathered, and the N subtree roots are compressed to the root
+(the JAX package commits a sharded codeword on the host); the queries read
+the gathered layers.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..device import resolve
 from ..hash import groestl, groestl_cuda
+from ..parallel import mesh as mesh_mod
 
 # the layers of at most this many rows (the root among them) cross to the
 # host in one copy when the tree is built: the root and the layers FRI
@@ -129,11 +134,35 @@ def commit_codeword_device(codeword: torch.Tensor, log_coset: int,
                            device=None) -> "DeviceMerkleTree":
     """Merkle tree of a codeword ((N, limbs) int32) on CUDA unless `device`
     names another: every layer through K5 and K6 (their plain versions on
-    the CPU), the top copied to the host once."""
+    the CPU), the top copied to the host once. A `RowShard` codeword is
+    committed by its ranks (`_sharded_levels`) on the mesh's device where
+    each rank's block holds whole leaves, else gathered and committed whole
+    on every rank."""
+    if isinstance(codeword, mesh_mod.RowShard):
+        if codeword.local.shape[0] >> log_coset:
+            return DeviceMerkleTree(_sharded_levels(codeword, log_coset))
+        codeword = mesh_mod.pull_local(codeword)
     cw = codeword.to(resolve(device)).reshape(codeword.shape[0], -1).contiguous()
     n_leaves = cw.shape[0] >> log_coset
     blob_len = cw.numel() * 4 // max(n_leaves, 1)
     return DeviceMerkleTree(groestl_cuda.tree_levels(cw, log_coset, blob_len))
+
+
+def _sharded_levels(codeword: "mesh_mod.RowShard", log_coset: int) -> torch.Tensor:
+    """The stacked layers of a codeword sharded in blocks over N ranks: this
+    rank's subtree (K5, K6), every rank's gathered layer by layer, then the
+    top log2 N levels above the N subtree roots (K6)."""
+    mesh = codeword.mesh
+    cw = codeword.local.reshape(codeword.local.shape[0], -1).contiguous()
+    n_leaves = cw.shape[0] >> log_coset
+    buf = groestl_cuda.tree_levels(cw, log_coset, cw.numel() * 4 // max(n_leaves, 1))
+    subtrees = mesh_mod.all_gather(mesh, buf)                 # (N, 2L - 1, 8)
+    layers = [t.transpose(0, 1).reshape(-1, 8)                 # rank major
+              for t in groestl_cuda.split_layers(subtrees.transpose(0, 1))]
+    top = torch.empty((2 * mesh.size - 1, 8), dtype=buf.dtype, device=buf.device)
+    top[:mesh.size] = layers[-1]
+    groestl_cuda.pair_levels(top)
+    return torch.cat(layers + [top[mesh.size:]])
 
 
 class DeviceMerkleTree:

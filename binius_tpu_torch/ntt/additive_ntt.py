@@ -9,7 +9,8 @@ twiddles at B32 or below, data at B32 or above and a power-of-two batch of
 at least 2^15 elements (the JAX package's dispatch threshold), and the
 packed stage loop otherwise, on either device: subfield-scalar butterflies
 over the (Z, Y, X) view with the twiddles kept at their own level, plain
-PyTorch as the JAX package's `_transform_jit` is plain XLA.
+PyTorch as the JAX package's `_transform_jit` is plain XLA. A row-sharded
+operand (`parallel.mesh.RowShard`) takes `sharded_ntt.transform_sharded`.
 `forward_scalar` and `inverse_scalar` are the host oracles.
 """
 
@@ -116,7 +117,19 @@ class AdditiveNTT:
     def _transform(self, data: torch.Tensor, data_level: int, shape: tuple,
                    coset: int, coset_bits: int, skip_rounds: int, inverse: bool,
                    device) -> torch.Tensor:
+        from ..parallel import mesh as mesh_mod
         from . import bitsliced_ntt
+        if isinstance(data, mesh_mod.RowShard):
+            # a row-sharded operand: the explicit cross-rank transform, or
+            # (where it does not apply) the whole transform on every rank
+            from . import sharded_ntt
+            mesh = data.mesh
+            if sharded_ntt.suitable(self, data, shape, mesh):
+                return sharded_ntt.transform_sharded(self, data, data_level, shape, coset,
+                                                     coset_bits, skip_rounds, inverse, mesh)
+            full = self._transform(mesh_mod.pull_local(data), data_level, shape, coset,
+                                   coset_bits, skip_rounds, inverse, mesh.device)
+            return mesh_mod.put_axis_sharded(mesh, full, 0, min_elems=1)
         data = data.to(resolve(device))
         n = tower.batch_shape(data_level, data)
         if len(n) == 1 and n[0] == 1 << sum(shape) and bitsliced_ntt.supported(

@@ -33,6 +33,7 @@ from ..hash.groestl import compress_pairs
 from ..math import mle
 from ..merkle.tree import MerkleTree, commit_codeword_device, hash_leaves
 from ..ntt.additive_ntt import AdditiveNTT, NTTDomain
+from ..parallel import mesh as mesh_mod
 
 LEVEL = 7       # codeword field (B128)
 ENC_LEVEL = 5   # FEncode (B32), the twiddle field
@@ -132,11 +133,15 @@ class FRIParams:
         return out
 
 
-def rs_encode(params: FRIParams, message: torch.Tensor, device=None) -> torch.Tensor:
+def rs_encode(params: FRIParams, message: torch.Tensor, device=None, mesh=None):
     """Encode the interleaved message (2^(log_dim+log_batch) B128 elements)
-    into the interleaved codeword (2^log_len elements)."""
-    message = message.to(resolve(device))
+    into the interleaved codeword (2^log_len elements). `mesh`: each rank
+    encodes its block of the codeword (`ntt.sharded_ntt`) and gets it as a
+    `parallel.mesh.RowShard`."""
+    message = message.to(mesh.device if mesh is not None else resolve(device))
     rep = torch.cat([message] * (1 << params.log_inv_rate), dim=0)
+    if mesh is not None:
+        rep = mesh_mod.put_axis_sharded(mesh, rep, 0, min_elems=1)
     return AdditiveNTT(params.ntt_domain()).forward(
         rep, LEVEL, (params.log_batch_size, params.log_code_len, 0),
         skip_rounds=params.log_inv_rate, device=message.device)
@@ -154,11 +159,14 @@ def commit_codeword(cw_np: np.ndarray, log_coset: int) -> MerkleTree:
     return MerkleTree.build(hash_leaves(leaf_blobs(cw_np, log_coset)))
 
 
-def fri_commit(params: FRIParams, message: torch.Tensor, device=None):
+def fri_commit(params: FRIParams, message: torch.Tensor, device=None, mesh=None):
     """Encode and commit the interleaved message on the device.
-    Returns (codeword, DeviceMerkleTree)."""
-    cw = rs_encode(params, message, device)
-    return cw, commit_codeword_device(cw, params.log_coset, cw.device)
+    Returns (codeword, DeviceMerkleTree). `mesh`: each rank encodes and
+    hashes its block; the codeword and the tree's layers are then gathered
+    (the FRI folds and queries read them whole)."""
+    cw = rs_encode(params, message, device, mesh)
+    tree = commit_codeword_device(cw, params.log_coset, cw.device)
+    return mesh_mod.pull_local(cw), tree
 
 
 # ---------------------------------------------------------------------------

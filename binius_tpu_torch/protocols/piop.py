@@ -119,12 +119,14 @@ def make_commit_params(commit_meta: CommitMeta, security_bits: int,
 
 
 def commit(fri_params: fri_mod.FRIParams, commit_meta: CommitMeta, packed_mles: list,
-           device=None):
+           device=None, mesh=None):
     """packed_mles: [(data, n_vars)] ascending by n_vars. Runs on CUDA unless
-    `device` names another. Returns (codeword, tree, message)."""
-    dev = resolve(device)
+    `device` names another (`mesh`: on the mesh's device, each rank encoding
+    and hashing its block of the codeword, `fri.fri_commit`). Returns
+    (codeword, tree, message)."""
+    dev = mesh.device if mesh is not None else resolve(device)
     message = merge_multilins([(d.to(dev), n) for d, n in packed_mles], commit_meta.total_vars)
-    cw, tree = fri_mod.fri_commit(fri_params, message, dev)
+    cw, tree = fri_mod.fri_commit(fri_params, message, dev, mesh)
     return cw, tree, message
 
 

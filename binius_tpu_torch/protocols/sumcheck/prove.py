@@ -22,10 +22,19 @@ mixed with the batch's weights on the device, and only the mixed sums
 cross to the host, which interpolates one round polynomial per prover
 (`compute_mixed_round_poly`; interpolation is linear). A product prover
 reorders its rows once, at construction, so that the composition operands
-are two contiguous blocks. The JAX package's
-power-of-4 shape buckets, streamed chunks, batch gates and mesh placement
-exist for XLA's compile cache, program size and the TPU mesh, and are not
-carried over.
+are two contiguous blocks. `GroupedRegularSumcheckProver` proves G claims
+of one structure as one (G, m, 2^n, 4) stack: one evaluation pass and one
+fold per round for the whole group.
+
+Under a mesh (`mesh=`), a regular or grouped prover holds this rank's
+1/N of each multilinear, laid out so that the folding variable's pairs
+are on one rank (every N-th row for a fold of the high variable,
+`parallel.mesh.to_strided`; a contiguous block for the low one). A
+round's sums are this rank's, XOR-reduced over the ranks
+(`mesh.xor_all_reduce`), and when log2(N) variables are left the N
+remaining rows are gathered and the rest runs on every rank. The JAX
+package's power-of-4 shape buckets, streamed chunks and batch gates exist
+for XLA's compile cache and program size, and are not carried over.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import torch
 from ...fields import tower
 from ...math import mle
 from ...math.univariate import EvaluationDomain
-from . import common
+from ...parallel import mesh as mesh_mod
+from . import common, front_loaded
 from .common import LEVEL, SumcheckClaim
 
 
@@ -171,21 +181,56 @@ def _stack(multilinears, n_vars: int) -> torch.Tensor:
     return in_order(parts, order)
 
 
-class RegularSumcheckProver:
+class _MeshRows:
+    """A prover's rows on a mesh: `self.stack` (rows, 2^(n_remaining -
+    log2 N), 4) is this rank's part, laid out so that the folding pairs are
+    local (see the module's docstring); `self.mesh` is None once the rows
+    are whole."""
+
+    def _init_mesh(self, mesh) -> None:
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._shift = self.mesh.log_size if self.mesh is not None else 0
+        self._gather_if_done()
+
+    @property
+    def _local_vars(self) -> int:
+        return self.n_remaining - self._shift
+
+    def _reduce(self, sums: torch.Tensor) -> torch.Tensor:
+        return sums if self.mesh is None else mesh_mod.xor_all_reduce(self.mesh, sums)
+
+    def _gather_if_done(self) -> None:
+        """At log2 N variables left each rank holds one row per multilinear,
+        the one whose index is its rank: gather them, in rank order."""
+        if self.mesh is not None and self.n_remaining <= self._shift:
+            g = mesh_mod.all_gather(self.mesh, self.stack[:, :1])    # (N, rows, 1, 4)
+            self.stack = g[:, :, 0].transpose(0, 1).contiguous()
+            self.mesh, self._shift = None, 0
+
+    def fold(self, challenge: int) -> None:
+        self.stack = _fold(self.stack, self._local_vars, self.order_high, challenge)
+        self.n_remaining -= 1
+        self._gather_if_done()
+
+
+class RegularSumcheckProver(_MeshRows):
     """Proves a `SumcheckClaim` over its multilinears [(level, tensor)].
 
     `eq_ind_challenges`: multilinear 0 is the eq-indicator expansion of
     that point; its final evaluation is recomputed by the verifier instead
-    of being sent (the zerocheck and evalcheck convention)."""
+    of being sent (the zerocheck and evalcheck convention). `mesh`: the
+    multilinears are this rank's parts (see the module's docstring)."""
 
     def __init__(self, claim: SumcheckClaim, multilinears, order_high: bool,
-                 eq_ind_challenges: tuple | None = None):
+                 eq_ind_challenges: tuple | None = None, mesh=None):
         assert len(multilinears) == claim.n_multilinears
         self.claim = claim
         self.order_high = order_high
         self.eq_ind_challenges = eq_ind_challenges
         self.n_remaining = claim.n_vars
-        self.stack = _stack(multilinears, claim.n_vars)
+        shift = mesh.log_size if mesh is not None else 0
+        self.stack = _stack(multilinears, claim.n_vars - shift)
+        self._init_mesh(mesh)
         self.domain = EvaluationDomain.from_subspace(3, claim.max_individual_degree() + 1)
         self._groups = _group_comp_specs(compact_compositions(
             cs.composition.expr for cs in claim.composite_sums))
@@ -198,18 +243,14 @@ class RegularSumcheckProver:
         """(n_comps, n_points, 4): each composite's sums at the domain's
         points, on the device."""
         pts = self.domain.points
-        ev = _at_points(*_halves(self.stack, self.n_remaining, self.order_high), pts)
-        return _point_sums(evaluate_grouped(LEVEL, self._groups, ev), len(pts))
+        ev = _at_points(*_halves(self.stack, self._local_vars, self.order_high), pts)
+        return self._reduce(_point_sums(evaluate_grouped(LEVEL, self._groups, ev), len(pts)))
 
     def compute_mixed_round_poly(self, weights: list[int]) -> list[int]:
         """sum_j weights[j] * (round polynomial of composite j)."""
         if not self.claim.composite_sums:
             return []
         return _interpolate_mixed(self.domain, self._round_sums(), weights)
-
-    def fold(self, challenge: int) -> None:
-        self.stack = _fold(self.stack, self.n_remaining, self.order_high, challenge)
-        self.n_remaining -= 1
 
     def finish(self) -> list[int]:
         """Multilinear evaluations at the bound point."""
@@ -315,6 +356,87 @@ class BatchedBivariateSumcheckProver(BivariateSumcheckProver):
         """Per claim, [ml0 eval, ml1 eval]."""
         vals = super().finish()
         return [vals[2 * i:2 * i + 2] for i in range(self.n_claims)]
+
+
+class GroupedRegularSumcheckProver(_MeshRows):
+    """G claims of one structure (n_vars, multilinear count and order,
+    compositions) as one stack: `gstack` (G, m, 2^n_vars, 4) B128, claim
+    major (with `eq_ind_challenges`, row 0 of every claim is the shared eq
+    expansion). A round is one evaluation pass over the whole group: the
+    claims' halves at the domain's points, each composition shape evaluated
+    once over every claim's rows (`evaluate_grouped`), the sums mixed on
+    the device and read by the host once; a fold is one fold of the whole
+    stack.
+
+    The multi-claim interface of `EqStackedSumcheckProver`: one batching
+    coefficient per claim, claim g's composite j weighted by its
+    coefficient to the power j + 1 (as the front-loaded batch weighs one
+    claim's composites; the same as `batch_prove`'s weight for claims of
+    one composite), and `finish` one list of evaluations per claim, so the
+    transcript is that of G `RegularSumcheckProver`s. `mesh`: `gstack` is
+    this rank's part of the element axis (see the module's docstring)."""
+
+    multi_claim = True
+
+    def __init__(self, claims: list, gstack: torch.Tensor, order_high: bool,
+                 eq_ind_challenges: tuple | None = None, mesh=None):
+        assert claims
+        nv = claims[0].n_vars
+        exprs = [cs.composition.expr for cs in claims[0].composite_sums]
+        assert all(c.n_vars == nv and c.n_multilinears == claims[0].n_multilinears
+                   and [cs.composition.expr for cs in c.composite_sums] == exprs
+                   for c in claims)
+        G, m = gstack.shape[0], gstack.shape[1]
+        assert G == len(claims) and m == claims[0].n_multilinears
+        self.claims = claims
+        self.claim = claims[0]
+        self.n_claims = G
+        self.order_high = order_high
+        self.eq_ind_challenges = eq_ind_challenges
+        self.n_remaining = nv
+        self.stack = gstack.reshape(G * m, gstack.shape[2], 4)
+        self._init_mesh(mesh)
+        self.domain = EvaluationDomain.from_subspace(3, self.claim.max_individual_degree() + 1)
+        self._groups = _group_comp_specs(compact_compositions(exprs))
+        self._n_comps = len(exprs)
+
+    @property
+    def n_vars(self) -> int:
+        return self.claim.n_vars
+
+    def _round_sums(self) -> torch.Tensor:
+        """(n_comps * G, n_points, 4), composite major: each claim's
+        composite sums at the domain's points."""
+        G, pts = self.n_claims, self.domain.points
+        e0, e1 = _halves(self.stack, self._local_vars, self.order_high)
+        m, half = e0.shape[0] // G, e0.shape[1]
+        per = max(1, STACKED_CHUNK_ELEMS // max(1, (m + self._n_comps) * len(pts) * half))
+        out = []
+        for g0 in range(0, G, per):
+            rows = slice(g0 * m, min(G, g0 + per) * m)
+            ev = _at_points(e0[rows], e1[rows], pts)              # (gc m, P half, 4)
+            ev = ev.reshape(-1, m, *ev.shape[1:]).transpose(0, 1)  # (m, gc, P half, 4)
+            vals = evaluate_grouped(LEVEL, self._groups, ev)       # (n_comps, gc, P half, 4)
+            out.append(tower.xor_reduce(
+                vals.reshape(*vals.shape[:2], len(pts), half, 4), 3))
+        sums = torch.cat(out, dim=1) if len(out) > 1 else out[0]   # (n_comps, G, P, 4)
+        return self._reduce(sums.reshape(-1, len(pts), 4))
+
+    def compute_mixed_round_poly(self, weights: list[int]) -> list[int]:
+        """weights: one batching coefficient per claim."""
+        if not self._n_comps:
+            return []
+        pw = [front_loaded.powers(c, self._n_comps) for c in weights]
+        return _interpolate_mixed(self.domain, self._round_sums(),
+                                  [pw[g][j] for j in range(self._n_comps)
+                                   for g in range(self.n_claims)])
+
+    def finish(self) -> list[list[int]]:
+        """Per claim, its multilinears' evaluations (eq's included)."""
+        assert self.n_remaining == 0
+        vals = tower.to_ints(LEVEL, self.stack[:, 0])
+        m = len(vals) // self.n_claims
+        return [vals[g * m:(g + 1) * m] for g in range(self.n_claims)]
 
 
 # Elements of one gathered operand of `EqStackedSumcheckProver`'s round (2^26

@@ -27,12 +27,29 @@ and are extended to the batch's with `OddInterpolate`. Device work is
 plain PyTorch; the suffixes are chunked only to bound the memory of one
 chunk (`_CHUNK_ELEMS`). Each stage of the prover is a
 `torch.profiler.record_function` range, "zerocheck.stage<i>"; each ends
-with values read back to the host.
+with values read back to the host, and `last_stage_times` holds the last
+proof's wall seconds per stage.
+
+Stage 2 proves a run of adjacent claims of one structure
+(`_structure_key`) as one `GroupedRegularSumcheckProver` when grouping is
+on (`group_claims`; by default on CUDA, off on the CPU, the JAX package's
+split between its accelerator and the CPU); the bytes are those of one
+prover per claim.
+
+Under a mesh (multilinears given as `parallel.mesh.RowShard` blocks), a
+claim of n variables runs sharded when n - skip >= log2(ranks) and each
+rank's block holds whole words: stage 1 on this rank's suffixes with its
+eq rows and one XOR all-reduce of the round's values; the skipped fold
+rank-local, then one all-to-all to the strided layout of the high-first
+stage 2 (where the folded block is too small for it, an all-gather);
+stage 3's projection on this rank's suffixes and one all-reduce. Smaller
+claims are gathered and proven whole on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -41,12 +58,15 @@ from ...math import mle
 from ...math.arith import ArithExpr, CompositionPoly
 from ...math.univariate import lagrange_evals_device, lagrange_evals_np
 from ...ntt.additive_ntt import AdditiveNTT, NTTDomain
+from ...parallel import mesh as mesh_mod
 from . import prove as sc_prove
 from .common import LEVEL, CompositeSumClaim, SumcheckClaim
 from .front_loaded import FrontLoadedBatchProver, FrontLoadedBatchVerifier, powers
 from .zerocheck import ZerocheckClaim, to_sumcheck_claim
 
 DOMAIN_LEVEL = 3  # B8 NTT twiddles
+
+last_stage_times: dict = {}
 
 # words held by one stage-1 chunk per stack row: the m multilinears'
 # extensions and the compositions' weighted values (4 words each) over
@@ -108,12 +128,51 @@ def _compact_compositions(zc: ZerocheckClaim) -> list:
     return sc_prove.compact_compositions(c.expr for c in zc.compositions)
 
 
+def _group_claims(override: bool | None, device: torch.device) -> bool:
+    """The grouping gate: `override` where given, else on for CUDA and off
+    for the CPU."""
+    return override if override is not None else device.type == "cuda"
+
+
+def _structure_key(zc: ZerocheckClaim):
+    """Claims of equal keys share their structure exactly and prove as one
+    `GroupedRegularSumcheckProver` (the tables of one gadget: merkle_tree's
+    nodes tables)."""
+    return (zc.n_vars, zc.n_multilinears, tuple(c.expr for c in zc.compositions))
+
+
+def _sharded(n: int, k: int, mesh) -> bool:
+    """A claim of n variables runs on this rank's blocks: every rank holds
+    whole suffixes (n - k >= log2 N) and whole words of bit-packed columns."""
+    return mesh is not None and n - k >= mesh.log_size and n - mesh.log_size >= 5
+
+
+def _eq_rows(point: list[int], device, mesh=None, strided: bool = False) -> torch.Tensor:
+    """The eq expansion of `point`, or this rank's rows of it: its
+    contiguous block (the high log2 N variables fixed to the rank's bits)
+    or, `strided`, every N-th row from its rank (the low ones fixed):
+    a scalar times the expansion of the other variables."""
+    if mesh is None:
+        return mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, point, device))
+    b = mesh.log_size
+    fixed, rest = (point[:b], point[b:]) if strided else (point[len(point) - b:],
+                                                          point[:len(point) - b])
+    c = 1
+    for i, p in enumerate(fixed):
+        c = scalar.mul(LEVEL, c, p if (mesh.rank >> i) & 1 else p ^ 1)
+    e = mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, rest, device))
+    return tower.mul(LEVEL, e, tower.full(LEVEL, (), c, device))
+
+
 def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
-                       n_cosets: int, dom_log: int) -> torch.Tensor:
+                       n_cosets: int, dom_log: int, mesh=None) -> torch.Tensor:
     """(n_comps, P, 4) B128 univariate round evaluations on cosets
-    1..n_cosets-1 of the skip subspace, P = (n_cosets - 1) << k."""
-    n = zc.n_vars
+    1..n_cosets-1 of the skip subspace, P = (n_cosets - 1) << k. `mesh`:
+    `mls` are this rank's blocks; its suffixes are weighted by its eq rows
+    and the values summed over the ranks."""
     device = mls[0][1].device
+    n = zc.n_vars - (mesh.log_size if mesh is not None else 0)
+    eq = _eq_rows(eq_pt, device, mesh)
     const_level = max((c.expr.binary_tower_level() for c in zc.compositions), default=0)
     levels = [lvl for lvl, _ in mls]
     if any(lvl > 5 for lvl in levels) or const_level > 5:
@@ -144,7 +203,6 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
             out.append(tower.embed(lvl, data_level, sl))
         return sc_prove.in_order(out, order)
 
-    eq = mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, eq_pt, device))
     groups = sc_prove._group_comp_specs(_compact_compositions(zc))
     ntt = AdditiveNTT(NTTDomain.create(DOMAIN_LEVEL, dom_log))
     coset_bits = dom_log - k
@@ -160,7 +218,7 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
         part = tower.xor_reduce(tower.scale_subfield(
             data_level, LEVEL, vals, eq[None, s0:s0 + chunk, None, :]), 1)
         acc = part if acc is None else acc ^ part
-    return acc
+    return acc if mesh is None else mesh_mod.xor_all_reduce(mesh, acc)
 
 
 def _run_front_loaded_prove(provers, transcript, coeffs=None):
@@ -199,32 +257,45 @@ def _reduction_composites(n_total: int, sums: list[int]):
         for i, s in enumerate(sums))
 
 
-def _fold_skipped(mls: list, n: int, k: int, lagr_cube: torch.Tensor) -> list:
+def _fold_skipped(mls: list, n: int, k: int, lagr_cube: torch.Tensor) -> torch.Tensor:
     """Bind the low k variables of each multilinear with the Lagrange
-    coefficients: [(LEVEL, 2^(n-k) elements)]."""
+    coefficients: (len(mls), 2^(n-k), 4) B128, in the multilinears' order.
+    The multilinears of a whole group of claims fold in one pass per
+    level (`_fold_skipped_group`)."""
     parts, order = [], []
     for lvl, idxs in sc_prove.group_by_level(mls).items():
         stack = torch.stack([mls[i][1] for i in idxs])
         parts.append(mle.batched_evaluate_partial_low(lvl, stack, n, lagr_cube, k)[1])
         order.extend(idxs)
-    full = sc_prove.in_order(parts, order)
-    return [(LEVEL, full[i]) for i in range(len(mls))]
+    return sc_prove.in_order(parts, order)
 
 
-def _project_skipped_stacked(mls: list, n: int, k: int, point: list[int]) -> torch.Tensor:
+def _fold_skipped_group(mls_per_claim: list, n: int, k: int,
+                        lagr_cube: torch.Tensor) -> torch.Tensor:
+    """`_fold_skipped` over every claim of a group in one pass per level:
+    (G, m, 2^(n-k), 4), claim major."""
+    flat = [ml for mls in mls_per_claim for ml in mls]
+    body = _fold_skipped(flat, n, k, lagr_cube)
+    return body.reshape(len(mls_per_claim), -1, *body.shape[1:])
+
+
+def _project_skipped_stacked(mls: list, n: int, k: int, point: list[int],
+                             mesh=None) -> torch.Tensor:
     """Bind the high n - k variables of each multilinear at `point`: one
-    (len(mls), 2^k, 4) B128 stack in the multilinears' order."""
+    (len(mls), 2^k, 4) B128 stack in the multilinears' order. `mesh`: the
+    multilinears are this rank's blocks (n their variables less log2 N),
+    projected with its eq rows and summed over the ranks."""
     device = mls[0][1].device
     parts, order = [], []
-    eq = (mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, point, device))
-          if n > k else None)
+    whole = n == k and mesh is None         # nothing to bind
+    eq = None if whole else _eq_rows(point, device, mesh)
     for lvl, idxs in sc_prove.group_by_level(mls).items():
         stack = torch.stack([mls[i][1] for i in idxs])
-        if n == k:
+        if whole:
             lvl, stack = tower.resolve_p1(lvl, stack)
             parts.append(tower.embed(lvl, LEVEL, stack) if lvl < LEVEL else stack)
         else:
-            parts.append(mle.batched_evaluate_partial_high(lvl, stack, n, eq, k)[1])
+            parts.append(mle.batched_evaluate_partial_high(lvl, stack, n, eq, k, mesh)[1])
         order.extend(idxs)
     return sc_prove.in_order(parts, order)
 
@@ -257,14 +328,23 @@ def _extrapolate_round_evals(ev: torch.Tensor, d_i: int, max_d: int, k: int,
 
 
 def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript,
-                skip_rounds: int) -> BatchZerocheckOutput:
+                skip_rounds: int, group_claims: bool | None = None) -> BatchZerocheckOutput:
     """Claims sorted ASCENDING by n_vars, skip_rounds <= the largest n_vars
-    (smaller claims high-pad). Writes the three stages to `transcript`."""
+    (smaller claims high-pad). Writes the three stages to `transcript`.
+    `group_claims`: prove runs of same-structure claims as one grouped
+    prover in stage 2 (None: on CUDA, off on the CPU)."""
     assert zc_claims
     assert all(zc_claims[i].n_vars <= zc_claims[i + 1].n_vars
                for i in range(len(zc_claims) - 1))
     k = skip_rounds
     assert 0 < k <= zc_claims[-1].n_vars
+    mesh = next((mesh_mod.mesh_of(d) for mls in mls_per_claim for _, d in mls
+                 if mesh_mod.is_mesh_sharded(d)), None)
+    sharded = [_sharded(zc.n_vars, k, mesh) for zc in zc_claims]
+    # this rank's blocks of a sharded claim, the whole multilinears of the rest
+    mls_per_claim = [[(lvl, mesh_mod.block_of(mesh, d) if sh else mesh_mod.pull_local(d))
+                      for lvl, d in mls] for mls, sh in zip(mls_per_claim, sharded)]
+    shift = [mesh.log_size if sh else 0 for sh in sharded]
     device = mls_per_claim[0][0][1].device
     orig_nvars = [zc.n_vars for zc in zc_claims]
     zc_claims, mls_per_claim = _high_pad(zc_claims, mls_per_claim, k)
@@ -278,6 +358,8 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
     dom_log = max(1, (max_domain_size - 1).bit_length())
 
     # --- stage 1: the univariate round, each claim on its own domain ---
+    last_stage_times.clear()
+    t0 = time.perf_counter()
     with torch.profiler.record_function("zerocheck.stage1"):
         batch_coeffs = [transcript.sample_scalar(LEVEL) for _ in zc_claims]
         r_claims = []
@@ -288,7 +370,8 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
                 r_claims.append(tower.zeros(
                     LEVEL, (len(zc.compositions), max(max_d - 1, 0) << k), device))
                 continue
-            ev = _claim_round_evals(zc, mls, eq_pts[i], k, d_i, dom_log)
+            ev = _claim_round_evals(zc, mls, eq_pts[i], k, d_i, dom_log,
+                                    mesh if sharded[i] else None)
             if d_i < max_d:
                 ev = _extrapolate_round_evals(ev, d_i, max_d, k, dom_log)
             r_claims.append(ev)
@@ -310,25 +393,58 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
             claimed_sums = [0] * sum(len(zc.compositions) for zc in zc_claims)
 
     # --- stage 2: eq-indicator sumchecks over the unskipped variables ---
+    t0 = _stage_done("stage1", t0)
     with torch.profiler.record_function("zerocheck.stage2"):
         lagr_cube = lagrange_evals_device(points[:1 << k], u_challenge, device)   # (2^k, 4)
-        s2_provers = []
-        ci = 0
-        for zc, mls, eq_pt in zip(zc_claims, mls_per_claim, eq_pts):
-            sums = claimed_sums[ci:ci + len(zc.compositions)]
-            ci += len(zc.compositions)
-            base = to_sumcheck_claim(zc)
-            claim = SumcheckClaim(zc.n_vars - k, zc.n_multilinears + 1, tuple(
+        comp_starts = [0]
+        for zc in zc_claims:
+            comp_starts.append(comp_starts[-1] + len(zc.compositions))
+
+        def s2_claim(g: int) -> SumcheckClaim:
+            zc = zc_claims[g]
+            sums = claimed_sums[comp_starts[g]:comp_starts[g + 1]]
+            return SumcheckClaim(zc.n_vars - k, zc.n_multilinears + 1, tuple(
                 CompositeSumClaim(cs.composition, s)
-                for cs, s in zip(base.composite_sums, sums)))
-            folded = _fold_skipped(mls, zc.n_vars, k, lagr_cube)
-            eq_ml = sc_prove.eq_ind_expansion_multilinear(list(eq_pt), device)
-            s2_provers.append(sc_prove.RegularSumcheckProver(
-                claim, [eq_ml, *folded], order_high=True, eq_ind_challenges=tuple(eq_pt)))
+                for cs, s in zip(to_sumcheck_claim(zc).composite_sums, sums)))
+
+        group_ok = _group_claims(group_claims, device)
+        s2_provers = []
+        i = 0
+        while i < len(zc_claims):
+            zc, eq_pt = zc_claims[i], eq_pts[i]
+            j = i + 1
+            if group_ok and zc.n_vars - k >= 1:
+                key = _structure_key(zc)
+                while j < len(zc_claims) and _structure_key(zc_claims[j]) == key:
+                    j += 1
+            nf = zc.n_vars - k - shift[i]            # variables of the folded block
+            body = _fold_skipped_group(mls_per_claim[i:j], nf + k, k, lagr_cube)
+            m2 = None
+            if sharded[i]:
+                # the high-first rounds pair rows 2^(nf + log N - 1) apart:
+                # lay the blocks out strided (or gather them when too small)
+                if nf >= mesh.log_size:
+                    m2 = mesh
+                    body = mesh_mod.to_strided(mesh, body, 2).local
+                else:
+                    body = mesh_mod.pull_local(mesh_mod.RowShard(body, mesh, 2))
+            eq = _eq_rows(list(eq_pt), device, m2, strided=True)
+            if j - i >= 2:
+                gstack = torch.cat([eq.expand(j - i, 1, *eq.shape), body], dim=1)
+                s2_provers.append(sc_prove.GroupedRegularSumcheckProver(
+                    [s2_claim(g) for g in range(i, j)], gstack, order_high=True,
+                    eq_ind_challenges=tuple(eq_pt), mesh=m2))
+            else:
+                s2_provers.append(sc_prove.RegularSumcheckProver(
+                    s2_claim(i), [(LEVEL, eq)] + [(LEVEL, b) for b in body[0]],
+                    order_high=True, eq_ind_challenges=tuple(eq_pt), mesh=m2))
+            del body
+            i = j
         fl2, s2_challenges = _run_front_loaded_prove(s2_provers, transcript, coeffs=batch_coeffs)
         del s2_provers
 
     # --- stage 3: the univariatizing reduction over the skipped variables ---
+    t0 = _stage_done("stage2", t0)
     with torch.profiler.record_function("zerocheck.stage3"):
         red_sums = []
         for i in range(len(zc_claims)):
@@ -342,7 +458,8 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
                 j += 1
             flat_mls = [ml for g in range(i, j) for ml in mls_per_claim[g]]
             proj_parts.append(_project_skipped_stacked(
-                flat_mls, nv, k, list(reversed(s2_challenges[:nv - k]))))
+                flat_mls, nv - shift[i], k, list(reversed(s2_challenges[:nv - k])),
+                mesh if sharded[i] else None))
             i = j
         proj_stack = torch.cat([*proj_parts, lagr_cube[None]])
         n_total = proj_stack.shape[0] - 1
@@ -350,10 +467,17 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
         red_prover = sc_prove.BivariateSumcheckProver(red_claim, prestacked=proj_stack,
                                                       order_high=True)
         fl3, s3_challenges = _run_front_loaded_prove([red_prover], transcript)
+    _stage_done("stage3", t0)
     skipped = list(reversed(s3_challenges))
     concat_evals = fl3.multilinear_evals[0]
     assert len(concat_evals) == n_total + 1
     return _regroup(zc_claims, orig_nvars, concat_evals, skipped, s2_challenges)
+
+
+def _stage_done(name: str, t0: float) -> float:
+    t = time.perf_counter()
+    last_stage_times[name] = t - t0
+    return t
 
 
 def _regroup(zc_claims, orig_nvars, concat_evals, skipped, s2_challenges):

@@ -8,7 +8,8 @@ gadgets u32 subtraction, schoolbook u32 multiplication, the barrel
 shifter and u32 division, and the u32_add commit and opening on their
 own, on one NVIDIA H100, and check them, with the constraint systems'
 wire formats and the prover's trace; then a Vision Mark-32 Merkle tree over
-the opening's codeword and the AES and POLYVAL bases on the card.
+the opening's codeword and the AES and POLYVAL bases on the card; then
+proofs across two ranks of a mesh, byte-equal to one device's.
 
     python3 chip_smoke.py [--seed 0] [--log-rows 22]
 
@@ -119,7 +120,14 @@ the opening's codeword and the AES and POLYVAL bases on the card.
    the counted run and two more) with its phase split (commit, exp, gpa, zerocheck, evalcheck, ring
    switch, PIOP), the bytes equal across the runs, and the verify time
    (median of 3: the accepting verify, and two against the system
-   deserialized from its BTPUCS03 bytes).
+   deserialized from its BTPUCS03 bytes). Every proof runs with stage 2's
+   same-structure zerocheck claims grouped (`group_claims`, on for CUDA by
+   default); each counted run prints its grouped provers and their claims
+   and stage 2's wall ms. For keccak and merkle_tree the proof's zerocheck
+   also runs alone in both regimes, one prover per claim and grouped
+   (`stage2_regimes`: stage 2's wall ms, median of 3, its wall and device
+   ms under torch.profiler, the grouped provers, K1 launches; the two
+   transcripts equal).
 8. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
    plain versions (on the CPU) against the kernel path, byte for byte; the
@@ -143,10 +151,25 @@ the opening's codeword and the AES and POLYVAL bases on the card.
    opened (every nodes table has rows, `GOLDEN_CARD`), each proof
    verified; the golden systems' BTPUCS03 bytes (8 and 2^16 rows, each of
    `GOLDEN_CIRCUITS`) against the sha256 of the JAX package's
-   (`GOLDEN_SERIALIZE`).
+   (`GOLDEN_SERIALIZE`); keccak at 2^1 also with `group_claims` False and
+   True, both the JAX package's bytes.
+8b. The mesh (`mesh_phase`): MESH_WORLD ranks started by
+   `parallel.distributed.run_ranks` (two on cuda:0 over gloo, the
+   collectives staged through host buffers, or one card each over NCCL
+   where there are as many cards; printed), each proving with
+   `prove(..., mesh=)`: u32_add at 2^16 rows (the JAX package's digest),
+   at 2^log_rows rows (the bytes of section 7's one-device proof; its
+   first and warm time, per-rank peak device memory and a run counted per
+   rank, every kernel launched on each rank) and the lookups-and-
+   exponentiation instance (`m3.instances.grouped_lookup_exp_instance`,
+   the JAX package's digest, proven here on one device too, a grouped
+   prover of two claims on every rank); each proof accepted by `verify`
+   and rejected with one byte flipped; and `ntt.sharded_ntt` forward and
+   inverse on 2^MESH_NTT_LOG B32 elements, every rank's block equal to the
+   one-device transform's, with the launches per rank.
 9. One JSON line for the kernels (launches: the thirteen proofs' counted
-   runs and the Vision tree's counted build together, and per proof), then,
-   as the last line,
+   runs, the Vision tree's counted build and each mesh rank's counted
+   u32_add run together, and per proof), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Every failure raises: no phase is caught. Without a CUDA device the script
@@ -271,6 +294,17 @@ GOLDEN_CARD = {
 # 2^19 leaves, 2^11 opened (`circuits.merkle_opened`), half its card
 # instance (keccak_lookups at half its size took as long as at 2^13)
 SMOKE_SIZE = {"merkle_tree": 19}
+# The JAX package's proof of `m3.instances.grouped_lookup_exp_instance(17)`
+# (lookups, an exponentiation and two u32_add tables of one structure;
+# log_inv_rate 1), (bytes, sha256), computed on the CPU with binius_tpu
+# (jax 0.9.0) by
+#   python scripts/port_golden_proof.py --circuit grouped_lookup_exp --seed 17
+GOLDEN_GROUPED_LOOKUP_EXP = (120816,
+                             "e0872180579ef3a25c67755a0a59b9a17a2c0ca23115a13787cefc7d776dbeec")
+# the mesh phase: ranks (two on one card over gloo, or one per card over
+# NCCL where the machine has as many cards) and the sharded NTT's size (B32)
+MESH_WORLD = 2
+MESH_NTT_LOG = 22
 
 # Card rates for the bounds. HBM: 3.35 TB/s (NVIDIA H100 SXM data sheet, at
 # 700 W). Logic: the CUDA C++ Programming Guide's throughput of 32-bit
@@ -548,6 +582,228 @@ def vision_tree(blobs, scheme, chunk=None) -> list:
             return lambda x: np.concatenate([fn(x[i:i + chunk]) for i in range(0, len(x), chunk)])
         scheme = HashScheme(scheme.name, pieces(scheme.hash_leaves), pieces(scheme.compress_pairs))
     return MerkleTree.build(scheme.hash_leaves(blobs), scheme).layers
+
+
+def install_grouped_spy() -> list:
+    """From now on, every `GroupedRegularSumcheckProver` built appends its
+    claim count to the returned list (the caller clears it)."""
+    from binius_tpu_torch.protocols.sumcheck import prove as sc_prove
+
+    built = []
+    cls = sc_prove.GroupedRegularSumcheckProver
+
+    class Counted(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self.n_claims)
+
+    sc_prove.GroupedRegularSumcheckProver = Counted
+    return built
+
+
+def stage2_regimes(circuit: str, core, witness, grouped: list) -> None:
+    """A proof's zerocheck alone (`univariate_zerocheck.batch_prove` on its
+    witness, a fresh transcript) with stage 2's claims proven one at a time
+    and grouped: per regime one warm-up run, one counted run (K1 launches,
+    the grouped provers and their claims) and two more (stage 2's wall ms,
+    the median of the three), then one under torch.profiler (the
+    "zerocheck.stage2" range's wall ms and its device kernels' ms); the two
+    regimes' transcripts must be equal."""
+    from torch.autograd import DeviceType
+
+    from binius_tpu_torch import cuda_lib
+    from binius_tpu_torch.constraint_system import prove as csp
+    from binius_tpu_torch.protocols.sumcheck import univariate_zerocheck as uzc
+    from binius_tpu_torch.transcript.transcript import ProverTranscript
+
+    sets, claims = csp._zerocheck_claims(core, ascending=True)
+    k = csp._zerocheck_skip(core)
+    mls = [[witness[oid] for oid in st.oracle_ids] for st in sets]
+    tapes = {}
+    for group in (False, True):
+        def run():
+            pt = ProverTranscript()
+            uzc.batch_prove(claims, mls, pt, k, group_claims=group)
+            torch.cuda.synchronize()
+            return pt.finalize()
+
+        run()
+        grouped.clear()
+        cuda_lib.reset_launches()
+        tapes[group] = run()
+        k1, groups = cuda_lib.launches["k1_tower_mul"], list(grouped)
+        walls = [uzc.last_stage_times["stage2"]]
+        for _ in range(2):
+            run()
+            walls.append(uzc.last_stage_times["stage2"])
+        wall = statistics.median(walls) * 1e3
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+        evs = prof.events()
+        rng = next(e for e in evs if e.device_type == DeviceType.CPU
+                   and e.name == "zerocheck.stage2")
+        lo, hi = rng.time_range.start, rng.time_range.end
+        busy = sum(e.time_range.elapsed_us() for e in evs
+                   if e.device_type == DeviceType.CUDA and lo <= e.time_range.start < hi
+                   and not e.name.startswith(("prove.", "zerocheck."))) / 1e3
+        log(f"{circuit} stage 2 {'grouped' if group else 'one prover per claim'}: "
+            f"{len(claims)} claims, {len(groups)} grouped provers holding {sum(groups)} claims "
+            f"{groups}; zerocheck K1 launches {k1}; stage 2 wall {wall:.3f} ms (median of 3); "
+            f"under the profiler wall {(hi - lo) / 1e3:.3f} ms, device {busy:.3f} ms")
+    if tapes[False] != tapes[True]:
+        raise AssertionError(f"{circuit}: grouped and per-claim zerocheck transcripts differ")
+    log(f"{circuit}: the zerocheck's transcript is the same in both regimes "
+        f"({len(tapes[True])} bytes)")
+
+
+def mesh_rank(log_rows: int, seed: int) -> dict:
+    """One rank of the mesh phase (`parallel.distributed.run_ranks`), all on
+    the mesh (`prove(..., mesh=)`): u32_add at 2^16 rows (the golden
+    instance), u32_add at 2^log_rows rows from `seed` (a first run, then a
+    run counted, every launch counter set to 0 just before and read just
+    after, with its peak device memory), the lookups-and-exponentiation
+    instance with every column sharded that divides (its grouped provers'
+    claims recorded), and `sharded_ntt.transform_sharded` of 2^MESH_NTT_LOG
+    B32 elements from `seed`, forward and inverse on a coset (this rank's
+    block's sha256 and the launches). Returns the digests, rank 0's proof
+    bytes, the times (ms), the peaks and the launches."""
+    from binius_tpu_torch import circuits, cuda_lib
+    from binius_tpu_torch.constraint_system import prove as csp
+    from binius_tpu_torch.m3 import instances
+    from binius_tpu_torch.ntt.additive_ntt import AdditiveNTT, NTTDomain
+    from binius_tpu_torch.parallel import mesh as mesh_mod
+
+    grouped = install_grouped_spy()
+    mesh = mesh_mod.make_mesh()
+    dev = mesh.device
+    cuda_lib.lib()
+    out = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend,
+           "staged": mesh.staged}
+
+    def digest(p: bytes) -> dict:
+        return {"bytes": len(p), "sha": hashlib.sha256(p).hexdigest(),
+                "proof": p if mesh.rank == 0 else None}
+
+    core, wit, _ = circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
+    out["u32_add_16"] = digest(csp.prove(core, wit, mesh=mesh))
+    core, wit, _ = circuits.instance("u32_add", log_rows, seed, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    csp.prove(core, wit, mesh=mesh)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = csp.prove(core, wit, mesh=mesh)
+    torch.cuda.synchronize()
+    out["u32_add"] = {**digest(p), "first_ms": first, "warm_ms": (time.perf_counter() - t0) * 1e3,
+                      "phases_ms": {k: v * 1e3 for k, v in csp.last_phase_times.items()},
+                      "launches": dict(cuda_lib.launches),
+                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del core, wit
+    core, wit = instances.grouped_lookup_exp_instance(17, device=dev)
+    grouped.clear()
+    out["grouped_lookup_exp"] = {**digest(csp.prove(core, wit, mesh=mesh, group_claims=True,
+                                                    min_shard_elems=1)),
+                                 "grouped": list(grouped)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << MESH_NTT_LOG,), dtype=torch.int32,
+                         device=dev, generator=gen)
+    ntt = AdditiveNTT(NTTDomain.create(5, MESH_NTT_LOG + 1))
+    for inverse in (False, True):
+        cuda_lib.reset_launches()
+        fn = ntt.inverse if inverse else ntt.forward
+        got = fn(mesh_mod.put_row_sharded(mesh, 5, data), 5, (0, MESH_NTT_LOG, 0), coset=1,
+                 coset_bits=1)
+        torch.cuda.synchronize()
+        out["ntt_inverse" if inverse else "ntt_forward"] = {
+            "sha": hashlib.sha256(got.local.cpu().numpy().tobytes()).hexdigest(),
+            "launches": dict(cuda_lib.launches)}
+    return out
+
+
+def mesh_phase(log_rows: int, seed: int, dev, proven: dict) -> dict:
+    """The mesh at MESH_WORLD ranks (`mesh_rank` on each): every proof's
+    bytes equal on the ranks and to the one-device proof (u32_add 2^16 the
+    JAX package's digest; u32_add 2^log_rows the earlier phase's proof,
+    `proven`; the lookups-and-exponentiation instance proven here on one
+    device and the JAX package's digest), at least one grouped prover of
+    two claims or more on it, each proof accepted by `verify` and rejected
+    with one byte flipped; the sharded NTT's blocks equal the one-device
+    transform's. Returns each rank's launches on its counted u32_add run."""
+    from binius_tpu_torch import circuits, cuda_lib
+    from binius_tpu_torch.constraint_system import prove as csp
+    from binius_tpu_torch.m3 import instances
+    from binius_tpu_torch.ntt.additive_ntt import AdditiveNTT, NTTDomain
+    from binius_tpu_torch.parallel import distributed
+
+    world = MESH_WORLD
+    how = (f"{world} cards, one per rank, over NCCL" if torch.cuda.device_count() >= world
+           else f"{world} ranks on cuda:0 over gloo, the collectives staged through host "
+                f"buffers (data only: every computation stays on the card)")
+    t0 = time.perf_counter()
+    ranks = distributed.run_ranks(mesh_rank, world, (log_rows, seed), timeout=900)
+    log(f"mesh: {how}; ranks {[(r['rank'], r['device'], r['backend']) for r in ranks]}; "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start-up")
+
+    def check(what: str, key: str, want: tuple, core, stmt: dict) -> None:
+        got = [(r[key]["bytes"], r[key]["sha"]) for r in ranks]
+        if any(g != tuple(want) for g in got):
+            raise AssertionError(f"mesh {what}: ranks' proofs {got} != one-device {want}")
+        proof = ranks[0][key]["proof"]
+        csp.verify(core, proof, **stmt)
+        bad = bytearray(proof)
+        bad[len(bad) // 3] ^= 1
+        try:
+            csp.verify(core, bytes(bad), **stmt)
+        except (ValueError, EOFError):
+            pass
+        else:
+            raise AssertionError(f"mesh {what}: a proof with a flipped byte was accepted")
+        log(f"mesh {what}: {world} ranks, {want[0]} bytes, sha256 {want[1]} (= one device); "
+            f"verifies, rejected with byte {len(bad) // 3} flipped")
+
+    core16, _, _ = circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, dev)
+    check(f"u32_add 2^{GOLDEN_LOG_ROWS}", "u32_add_16", GOLDEN_PROOF_16, core16, {})
+    core_m, stmt_m, n_m, sha_m = proven["u32_add"]
+    check(f"u32_add 2^{log_rows}", "u32_add", (n_m, sha_m), core_m, stmt_m)
+    for r in ranks:
+        u = r["u32_add"]
+        log(f"mesh u32_add 2^{log_rows} rank {r['rank']}: first {u['first_ms']:.1f} ms, warm "
+            f"{u['warm_ms']:.1f} ms ({', '.join(f'{k} {v:.1f}' for k, v in u['phases_ms'].items())}"
+            f"), peak device memory {u['peak_gib']:.2f} GiB, launches {u['launches']}")
+    missing = [k for k in cuda_lib.KERNELS if any(r["u32_add"]["launches"][k] == 0
+                                                 for r in ranks)]
+    if missing:
+        raise AssertionError(f"mesh u32_add 2^{log_rows}: kernels not launched on a rank: "
+                             f"{missing}")
+    core_g, wit_g = instances.grouped_lookup_exp_instance(17, device=dev)
+    one = csp.prove(core_g, wit_g)
+    if (len(one), hashlib.sha256(one).hexdigest()) != GOLDEN_GROUPED_LOOKUP_EXP:
+        raise AssertionError("grouped_lookup_exp one-device proof != the JAX package's digest")
+    check("grouped_lookup_exp", "grouped_lookup_exp", GOLDEN_GROUPED_LOOKUP_EXP, core_g, {})
+    groups = [r["grouped_lookup_exp"]["grouped"] for r in ranks]
+    if not all(any(n >= 2 for n in g) for g in groups):
+        raise AssertionError(f"mesh grouped_lookup_exp: no grouped prover of 2 claims {groups}")
+    log(f"mesh grouped_lookup_exp: grouped provers' claims per rank {groups}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << MESH_NTT_LOG,), dtype=torch.int32,
+                         device=dev, generator=gen)
+    ntt = AdditiveNTT(NTTDomain.create(5, MESH_NTT_LOG + 1))
+    for key, fn in (("ntt_forward", ntt.forward), ("ntt_inverse", ntt.inverse)):
+        want = fn(data, 5, (0, MESH_NTT_LOG, 0), coset=1, coset_bits=1,
+                  device=dev).reshape(world, -1)
+        for r in ranks:
+            if r[key]["sha"] != hashlib.sha256(want[r["rank"]].cpu().numpy().tobytes()).hexdigest():
+                raise AssertionError(f"mesh {key}: rank {r['rank']}'s block != one device")
+        log(f"mesh sharded NTT, 2^{MESH_NTT_LOG} B32, coset 1, {key.split('_')[1]}: every "
+            f"rank's block = the one-device transform; launches per rank "
+            f"{[r[key]['launches'] for r in ranks]}")
+    return {f"mesh u32_add 2^{log_rows} rank {r['rank']}": r["u32_add"]["launches"]
+            for r in ranks}
 
 
 class Phases:
@@ -1118,8 +1374,8 @@ def main() -> int:
     recorded = {}
     fri_commit_0, query_openings = fri.fri_commit, fri.FRIFolder._query_openings
 
-    def recording_fri_commit(params_, message, device=None):
-        cw_, tree_ = fri_commit_0(params_, message, device)
+    def recording_fri_commit(params_, message, device=None, mesh=None):
+        cw_, tree_ = fri_commit_0(params_, message, device, mesh)
         recorded.setdefault("codeword", cw_)
         return cw_, tree_
 
@@ -1359,7 +1615,10 @@ def main() -> int:
     # on the card at its grid size
     from binius_tpu_torch import circuits
     from binius_tpu_torch.constraint_system import prove as csp
+    from binius_tpu_torch.protocols.sumcheck import univariate_zerocheck as uzc
     from binius_tpu_torch.utils import tracing
+
+    grouped = install_grouped_spy()   # the grouped provers' claims, per proof
 
     def commit_plan(core):
         """(K4 launches the commit's NTT makes, the plan's description)."""
@@ -1490,8 +1749,8 @@ def main() -> int:
         commits, built = [], []
         fri_commit = fri.fri_commit
 
-        def recording_commit(params_, message, device=None):
-            cw_, tree_ = fri_commit(params_, message, device)
+        def recording_commit(params_, message, device=None, mesh=None):
+            cw_, tree_ = fri_commit(params_, message, device, mesh)
             commits.append((params_, message, cw_))
             return cw_, tree_
 
@@ -1531,11 +1790,16 @@ def main() -> int:
         host_compressions[0] = 0
         groestl.compress_pairs_t = counted_compress
         torch.cuda.reset_peak_memory_stats()
+        grouped.clear()
         cuda_lib.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         proof = csp.prove(core, witness, **stmt)
         torch.cuda.synchronize()
+        log(f"proof {circuit} stage 2 (grouping on, the CUDA default): {len(grouped)} grouped "
+            f"provers holding {sum(grouped)} claims {list(grouped)}; stage 2 wall "
+            f"{uzc.last_stage_times.get('stage2', 0.0) * 1e3:.3f} ms")
+        proven[circuit] = (core, stmt, len(proof), hashlib.sha256(proof).hexdigest())
         # the counted run is also the first warm sample
         names = ("total", "commit", "exp", "gpa", "zerocheck", "evalcheck", "ring_switch",
                  "piop", "verify")
@@ -1603,8 +1867,11 @@ def main() -> int:
             "the accepting verify against the system and two against the deserialized "
             "system): %s" % (
                 circuit, size, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+        if circuit in ("keccak", "merkle_tree"):
+            stage2_regimes(f"{circuit} 2^{size}", core, witness, grouped)
         return counts
 
+    proven = {}
     proof_launches = {"u32_add": drive_proof("u32_add", args.log_rows)}
     if any(v == 0 for v in proof_launches["u32_add"].values()):
         raise AssertionError(f"kernels not launched on the u32_add proof: "
@@ -1618,9 +1885,6 @@ def main() -> int:
         proof_launches[circuit] = drive_proof(circuit, size)
         phases.done(f"proof {circuit}")
     proof_launches["vision_tree"] = counts_v
-    for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in proof_launches.values())
-        r["launches_by_proof"] = {c: v[r["name"]] for c, v in proof_launches.items()}
 
     # 8. bytes: the JAX package's digest at 2^16 rows, and the same opening
     # composed from the plain versions on the CPU (at the golden's depth it
@@ -1680,9 +1944,16 @@ def main() -> int:
         core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, dev)
         if GOLDEN_CIRCUITS.get(circuit, (None,))[0] == size:
             check_serialized(circuit, core_c)
+        grouped.clear()
         pc = csp.prove(core_c, wit_c, **stmt_c)
-        check_digest(f"{circuit} proof 2^{size}, seed 0 on the card", pc, (n_bytes, sha))
+        check_digest(f"{circuit} proof 2^{size}, seed 0 on the card ({len(grouped)} grouped "
+                     f"provers, claims {list(grouped)})", pc, (n_bytes, sha))
         csp.verify(core_c, pc, **stmt_c)
+        if circuit == "keccak":
+            check_digest(f"{circuit} proof 2^{size} with group_claims=False",
+                         csp.prove(core_c, wit_c, group_claims=False, **stmt_c), (n_bytes, sha))
+            check_digest(f"{circuit} proof 2^{size} with group_claims=True",
+                         csp.prove(core_c, wit_c, group_claims=True, **stmt_c), (n_bytes, sha))
         t0 = time.perf_counter()
         core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, cpu)
         if csp.prove(core_c, wit_c, device=cpu, **stmt_c) != pc:
@@ -1690,6 +1961,15 @@ def main() -> int:
         log(f"{circuit} proof 2^{size} through the plain versions on the CPU "
             f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")
     phases.done("golden and plain circuit proofs")
+
+    # 8b. the mesh: ranks spawned on the card, every proof's bytes those of
+    # one device
+    torch.cuda.empty_cache()
+    proof_launches.update(mesh_phase(args.log_rows, args.seed, dev, proven))
+    phases.done("mesh")
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in proof_launches.values())
+        r["launches_by_proof"] = {c: v[r["name"]] for c, v in proof_launches.items()}
 
     # 9. results
     print(json.dumps({"kernels": rows}))

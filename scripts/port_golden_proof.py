@@ -65,7 +65,16 @@ instance helpers:
   dividends p (`integers(0, 2**32, 2**size)`), then the divisors q
   (`integers(0, 2**16, 2**size) + 1`);
 - `golden_8`: the golden 8-row u32_add proof of
-  `tests/test_golden_transcript.py` (rows from `random.Random(42)`).
+  `tests/test_golden_transcript.py` (rows from `random.Random(42)`);
+- `grouped_lookup_exp`: `m3.instances.grouped_lookup_exp_instance(seed)`
+  (indexed lookups, a MulUU32 exponentiation and two same-structure u32_add
+  tables; its size is fixed, pass `--seed 17`, the instance's default);
+- `grouped_zerocheck`: no proof of a system but the univariate-skip
+  zerocheck transcript alone (`univariate_zerocheck.batch_prove`, ungrouped)
+  of `tests/test_univariate_zerocheck.py`'s grouped claims at 2^size rows:
+  three claims out + a*b (out = a AND b) and one out + a*a of B1 columns,
+  bits from `random.Random(7).randrange(2)` (out, a, b per claim in turn);
+  it prints the skip, the transcript's length and its sha256.
 
 The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`
 (with the boundaries or the table sizes where the instance has them),
@@ -95,7 +104,8 @@ DEFAULT_SIZE = {"u32_add": 16, "b32_mul": 10, "keccak": 1, "groestl": 3,
                 "u32_mul_gkr": 7, "bitwise_ops": 5, "keccak_lookups": 0,
                 "perm_channel": 3, "boundary": 2, "selector_flush": 3, "lookup_flush": 3,
                 "nonzero": 3, "sha256": 0, "merkle_tree": 4, "u32_sub": 4, "u32_mul": 2,
-                "barrel_shifter": 2, "div_uu32": 2, "golden_8": 3}
+                "barrel_shifter": 2, "div_uu32": 2, "golden_8": 3,
+                "grouped_lookup_exp": 0, "grouped_zerocheck": 6}
 # merkle_tree: the opened leaves of the instance of 2^size leaves
 MERKLE_OPENED = {4: 3, 6: 8}
 CHANNEL_SYSTEMS = ("perm_channel", "boundary", "selector_flush", "lookup_flush", "nonzero")
@@ -324,6 +334,9 @@ def statement(circuit: str, size: int, seed: int):
     instance: the boundaries or the table sizes where it has them."""
     if circuit == "golden_8":
         return (*golden_8(), {})
+    if circuit == "grouped_lookup_exp":
+        from binius_tpu.m3.instances import grouped_lookup_exp_instance
+        return (*grouped_lookup_exp_instance(seed), {})
     if circuit in ("u32_sub", "u32_mul", "barrel_shifter", "div_uu32"):
         return (*gadget_circuit(circuit, size, seed), {})
     if circuit in CHANNEL_SYSTEMS:
@@ -432,6 +445,27 @@ def build(circuit: str, size: int, seed: int, variant: str = "P"):
     return core, wi.to_core_witness(core, omap)
 
 
+def grouped_zerocheck(size: int):
+    """(claims, multilinears) of the grouped zerocheck at 2^size rows."""
+    from binius_tpu.fields import tower
+    from binius_tpu.math.arith import ArithExpr, CompositionPoly
+    from binius_tpu.protocols.sumcheck.zerocheck import ZerocheckClaim
+
+    V = ArithExpr.var
+    rng = random.Random(7)
+    claims, mls = [], []
+    for _ in range(3):
+        a = [rng.randrange(2) for _ in range(1 << size)]
+        b = [rng.randrange(2) for _ in range(1 << size)]
+        out = [x & y for x, y in zip(a, b)]
+        claims.append(ZerocheckClaim(size, 3, (CompositionPoly(V(0) + V(1) * V(2), 3),)))
+        mls.append([(0, tower.from_ints(0, v)) for v in (out, a, b)])
+    a = [rng.randrange(2) for _ in range(1 << size)]
+    claims.append(ZerocheckClaim(size, 2, (CompositionPoly(V(0) + V(1) * V(1), 2),)))
+    mls.append([(0, tower.from_ints(0, a)), (0, tower.from_ints(0, a))])
+    return claims, mls
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--circuit", choices=sorted(DEFAULT_SIZE), nargs="+", default=["u32_add"])
@@ -451,6 +485,17 @@ def main() -> None:
 
     for circuit in args.circuit:
         size = DEFAULT_SIZE[circuit] if args.size is None else args.size
+        if circuit == "grouped_zerocheck":
+            from binius_tpu.protocols.sumcheck import univariate_zerocheck as uzc
+            from binius_tpu.transcript.transcript import ProverTranscript
+            claims, mls = grouped_zerocheck(size)
+            skip = uzc.compute_skip_rounds(claims)
+            pt = ProverTranscript()
+            uzc.batch_prove(claims, mls, pt, skip, group_claims=False)
+            tape = pt.finalize()
+            print(circuit, size, "skip", skip, len(tape), hashlib.sha256(tape).hexdigest(),
+                  flush=True)
+            continue
         core, witness, kw = statement(circuit, size, args.seed)
         wire = hashlib.sha256(serialization.serialize(core)).hexdigest()
         print(circuit, size, "digest", core.digest().hex(), "serialize", wire, flush=True)

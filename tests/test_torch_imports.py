@@ -1,7 +1,7 @@
 """The port stands alone: binius_tpu_torch and chip_smoke.py import neither
 JAX nor the JAX package, and the kernels build only when first launched;
 every module of the JAX package has its counterpart in the port but those
-that are TPU- or XLA-specific or wait for the multi-device mesh."""
+that are TPU- or XLA-specific."""
 
 import ast
 import pathlib
@@ -45,16 +45,15 @@ def test_package_imports_without_jax_or_nvcc():
     assert out.stdout.strip().endswith("ok")
 
 
-# the JAX package's modules with no counterpart of the same path: their
-# kernels' counterparts (K1/K2 in fields/bitslice_cuda.py, K5/K6 in
-# hash/groestl_cuda.py), what the port drops (the MXU multiply, the
-# bitsliced XLA Grøstl, the ctypes native paths, the XLA compile cache) and
-# the multi-device mesh, not ported yet
+# the JAX package's modules with no counterpart of the same path, each
+# TPU- or XLA-specific: the Pallas kernels (their counterparts are
+# fields/bitslice_cuda.py for K1/K2 and hash/groestl_cuda.py for K5/K6),
+# the MXU bit-matrix multiply (fields/fastmul.py), the bitsliced XLA Grøstl
+# (K5, K6 and the torch byte-state permutation replace it), the ctypes
+# native paths and the persistent XLA compile cache
 NO_COUNTERPART = {
     "fields/bitslice_pallas.py", "hash/groestl_pallas.py", "fields/fastmul.py",
     "hash/groestl_bitslice.py", "native/__init__.py", "utils/jax_cache.py",
-    "ntt/sharded_ntt.py", "parallel/__init__.py", "parallel/distributed.py",
-    "parallel/mesh.py", "parallel/sharding.py",
 }
 
 
@@ -66,10 +65,12 @@ def test_every_reference_module_has_a_counterpart():
 
 
 # public names of the JAX package's modules with no counterpart in the
-# port's module of the same path: JAX dtypes and TPU dispatch switches (the
-# port's NTT gate is `bitsliced_ntt.supported`), the ctypes native paths,
-# the XLA compile counters, unused constants, and the grouped zerocheck
-# prover, which waits for the bench
+# port's module of the same path, each TPU- or XLA-specific: JAX dtypes
+# (`U32`, `LIMB_BITS`), TPU dispatch switches (`NO_PALLAS`,
+# `wants_dispatch` and the TPU lane width `LANE`; the port's NTT gate is
+# `bitsliced_ntt.supported`), the ctypes native paths (`*_native`), the
+# XLA compile counters, and constants the JAX package defines and never
+# reads (`MAX_LEVEL`, `M32`)
 NAMES_WITHOUT_COUNTERPART = {
     "fields/bitslice.py": {"U32"},
     "fields/scalar.py": {"MAX_LEVEL"},
@@ -77,7 +78,6 @@ NAMES_WITHOUT_COUNTERPART = {
     "hash/groestl.py": {"compress_seq_native", "digest_rows_native"},
     "m3/gadgets/sha256.py": {"M32"},
     "ntt/bitsliced_ntt.py": {"LANE", "wants_dispatch"},
-    "protocols/sumcheck/prove.py": {"GroupedRegularSumcheckProver"},
     "utils/tracing.py": {"compile_stats", "install_compile_counter"},
 }
 
