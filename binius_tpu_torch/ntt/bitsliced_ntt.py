@@ -9,15 +9,18 @@ consecutive elements in one word:
     and stage (`_make_plan`), XORed with per-stage intra-word delta masks
     where the pair distance is below 32 elements (the LCH14 twiddle is
     F2-linear in its index);
-  * a B32 twiddle scales higher-level data group by group (`_scale`).
+  * a level-tl twiddle (tl <= 5) scales level-dl data group by group, 2^tl
+    planes at a time (`_scale`).
 
 On the card the trailing stages of a forward transform (leading of an
 inverse) whose pair distance fits a shared-memory tile of `_TILE_WORDS`
 words run fused in K3 (`csrc/ntt.cu`); the other (cross) stages run in
 K4, up to `_CROSS_STAGES` consecutive ones fused per launch
-(`_cross_runs`). `_stage_plain` is the plain version of both. The plan's
-twiddle rows are the contract between a kernel and its plain version; they
-do not depend on the split.
+(`_cross_runs`). Both kernels take every twiddle level tl <= 5 on data at
+dl >= tl, as the Pallas kernels do: a block holds one group of 2^tl
+planes and the launch runs the 2^(dl - tl) groups. `_stage_plain` is the
+plain version of both. The plan's twiddle rows are the contract between a
+kernel and its plain version; they do not depend on the split.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from ..device import i32, shr
 from ..fields import bitslice, bitslice_cuda
 from .additive_ntt import NTTDomain
 
-# K3 tile: words of one 32-plane group held in shared memory. 32 planes x
-# 1024 words x 4 B = 128 KB of the 227 KB a block may use; 2048 would not fit.
+# K3 tile: words of one group of 2^tl planes held in shared memory. At B32
+# twiddles 32 planes x 1024 words x 4 B = 128 KB of the 227 KB a block may
+# use; 2048 would not fit. The plan's split does not depend on tl.
 _TILE_WORDS = 1024
 # K4 run: at most this many cross stages fused in one launch. Its tile holds
 # 32 planes x 2^s words of the run's index bits x 2^(10 - s) low words =
@@ -119,12 +123,15 @@ def _make_plan(domain: NTTDomain, dl: int, shape: tuple, coset: int,
                 t[sel] ^= np.uint32(row[b] & 0xFFFFFFFF)
         deltas = ()
         if (1 << (i + log_x)) < 32:
-            # intra-word stage: twiddle(32w + p) = t[w] ^ delta(p >> s)
+            # intra-word stage: twiddle(32w + p) = t[w] ^ delta(p >> s); of
+            # p >> s only the n_bits block bits count: where a block is
+            # smaller than a word (log_x + log_y < 5) the bits above are z's
+            # (fault C6: the JAX package's plan reads them too)
             dvals = []
             for p in range(32):
                 jp = p >> s
                 v = 0
-                for b in range(5 - s):
+                for b in range(min(5 - s, n_bits)):
                     if (jp >> b) & 1:
                         v ^= row[b]
                 dvals.append(v)
@@ -224,11 +231,18 @@ def _stage_plain(plan: _Plan, st: _Stage, planes: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_cuda_plan(plan: _Plan, planes: torch.Tensor, name: str) -> None:
+    """The kernels take every plan `_make_plan` makes (twiddles at tl <= 5,
+    data at dl >= tl); this refuses what they cannot hold."""
     cuda_lib.check(planes, name, ndim=2, align=16)  # 16-byte copies in and out
-    if plan.tl != 5 or plan.dl < 5:
-        raise NotImplementedError(f"{name}: the kernel takes B32 twiddles on data >= B32")
+    if not 0 <= plan.tl <= 5 or plan.dl < plan.tl:
+        raise ValueError(f"{name}: twiddles at level {plan.tl} on data at level {plan.dl}")
     if tuple(planes.shape) != (1 << plan.dl, plan.n_words):
         raise ValueError(f"{name}: planes {tuple(planes.shape)} do not match the plan")
+
+
+def _groups(plan: _Plan) -> int:
+    """The plane groups a launch runs: 2^(dl - tl) level-tl transforms."""
+    return 1 << (plan.dl - plan.tl)
 
 
 def ntt_local(plan: _Plan, first: int, planes: torch.Tensor,
@@ -248,7 +262,7 @@ def ntt_local(plan: _Plan, first: int, planes: torch.Tensor,
                          f"{tuple(tw.shape)} do not fit the kernel")
     meta = _local_meta(plan, first, planes.device)
     cuda_lib.call("k3_ntt_local", planes.data_ptr(), tw.data_ptr(), meta.data_ptr(),
-                  len(stages), plan.n_words, 1 << (plan.dl - 5), plan.tile,
+                  len(stages), plan.n_words, plan.tl, _groups(plan), plan.tile,
                   int(plan.inverse))
     return planes
 
@@ -292,14 +306,15 @@ def ntt_cross(plan: _Plan, first: int, n: int, planes: torch.Tensor,
     if tuple(tw.shape) != (n, plan.n_words):
         raise ValueError(f"ntt_cross: twiddles {tuple(tw.shape)} do not match the run")
     cuda_lib.call("k4_ntt_cross", planes.data_ptr(), tw.data_ptr(), plan.n_words,
-                  1 << (plan.dl - 5), lo_bit, n, int(plan.inverse))
+                  plan.tl, _groups(plan), lo_bit, n, int(plan.inverse))
     return planes
 
 
 def _local_meta_np(plan: _Plan, first: int) -> np.ndarray:
     rows = []
     for st in plan.stages[first:first + plan.n_local]:
-        deltas = st.deltas or (0,) * 32
+        # 2^tl delta masks of an intra-word stage, padded to the kernel's 32
+        deltas = st.deltas + (0,) * (32 - len(st.deltas))
         rows.append([st.d_elems] + [i32(d) for d in deltas])
     return np.asarray(rows, dtype=np.int32).reshape(-1, 33)
 

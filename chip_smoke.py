@@ -16,7 +16,8 @@ proofs across two ranks of a mesh, byte-equal to one device's.
 1. Prints the card (nvidia-smi name and power limit) and the versions.
 2. Builds the kernels from binius_tpu_torch/csrc (nvcc, sm_90a) and times it.
    The ptxas report (registers, spills; no function of K1 and K2 and no
-   kernel of K3-K6 may spill, K3 in either direction), the SASS instruction
+   kernel of K3-K6 may spill, K3 and K4 in either direction at each of the
+   six twiddle levels), the SASS instruction
    counts of K1, K3, K5 and K6, and the card figures the bounds use.
 3. One phase per kernel (K1-K6) at the shapes of the main path: the
    kernel's output against its plain PyTorch version on the same inputs
@@ -77,6 +78,16 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    take the packed stage loop on the card, no K2-K4 launch, and equal it
    on the CPU; the smallest batch the bitsliced gate admits (2^15
    elements) takes K2/K3/K4 and equals the stage loop on the card.
+6b. K3 and K4 at every twiddle level (fault C5; `level_checks`): at each
+   (data level, twiddle level) of `LEVEL_PAIRS` (B8 and B16 twiddles on
+   B8 to B128 data, and B1 to B4 twiddles on B32), forward and inverse at
+   the shapes of `LEVEL_SHAPES` (intra-word stages, cross runs, a coset,
+   skipped rounds, blocks below a word), K3 launched once where the plan
+   has local stages and K4 once per cross run (at least once per pair),
+   each transform bit-equal to the stages' plain version on the card;
+   `AdditiveNTT` over a B8 domain on 2^20 B32 elements, shape (12, 8, 0),
+   the call that raised before, equal to the stage loop, and K4 and K3
+   timed at its plan with their bounds.
 7. The proofs (the main path), each through `constraint_system.prove.prove`
    on the card with its inputs drawn from --seed
    (`binius_tpu_torch.circuits.instance`): the u32_add constraint system
@@ -93,8 +104,10 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    `SMOKE_SIZE`, half its card size: 2^11 opened leaves of a 2^19-leaf
    Grøstl-256 tree, whose levels K6 builds on the card, the paths'
    compressions checked in three nodes tables, through packed, projected
-   and shifted columns, with its boundaries and table sizes), u32_sub (2^22 rows, `U32Sub`), u32_mul (2^20 schoolbook
-   products, `U32Mul`: 128 committed B1 columns of 2^25 bits),
+   and shifted columns, with its boundaries and table sizes), u32_sub
+   (2^22 rows, `U32Sub`), u32_mul (at `SMOKE_SIZE`, half its card size:
+   2^19 schoolbook products, `U32Mul`: 128 committed B1 columns of 2^24
+   bits),
    barrel_shifter (2^20 rows, each of the three shift kinds by its own
    amounts) and div_uu32 (2^20 divisions, `DivUU32`: a `MulUU32` through
    the exponentiation phase, 64-bit ripple adder and subtracter over bit
@@ -128,6 +141,14 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    (`stage2_regimes`: stage 2's wall ms, median of 3, its wall and device
    ms under torch.profiler, the grouped provers, K1 launches; the two
    transcripts equal).
+7b. Other code rates and the command lines: u32_add at 2^log_rows rows
+   with `log_inv_rate` 2 and 3 and sha256 2^14 with 2 through the same
+   proof driver as section 7, with one warm run (the counted one; their
+   goldens are section 8's); then each example command line of
+   `binius_tpu_torch.examples` run in-process on the card at its JAX
+   defaults, its output holding the device and every metric line the JAX
+   example prints (`EXAMPLE_LINES`), and u32_add's as `python -m
+   binius_tpu_torch.examples.u32_add` in a subprocess beside them.
 8. Bytes: at 2^16 rows the opening's sha256 against a golden digest
    computed by the JAX package, and the same opening composed from the
    plain versions (on the CPU) against the kernel path, byte for byte; the
@@ -147,9 +168,11 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    selector flushes, a multiplicity lookup, a non-zero claim), sha256 at
    2^0 and merkle_tree at the example's instance (16 leaves, 3 opened: its
    LEFT nodes table is empty), u32_sub at 2^4, u32_mul, barrel_shifter and
-   div_uu32 at 2^2 the same way, and merkle_tree at 64 leaves with 8
-   opened (every nodes table has rows, `GOLDEN_CARD`), each proof
-   verified; the golden systems' BTPUCS03 bytes (8 and 2^16 rows, each of
+   div_uu32 at 2^2 the same way, merkle_tree at 64 leaves with 8
+   opened (every nodes table has rows, `GOLDEN_CARD`), and u32_add at 2^11
+   rows with `log_inv_rate` 2 and 3 and sha256 at 2^0 with 2
+   (`GOLDEN_RATES`), each proof verified (the proofs through the plain
+   versions run in PLAIN_WORKERS worker processes beside the card's); the golden systems' BTPUCS03 bytes (8 and 2^16 rows, each of
    `GOLDEN_CIRCUITS`) against the sha256 of the JAX package's
    (`GOLDEN_SERIALIZE`); keccak at 2^1 also with `group_claims` False and
    True, both the JAX package's bytes.
@@ -168,8 +191,9 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    inverse on 2^MESH_NTT_LOG B32 elements, every rank's block equal to the
    one-device transform's, with the launches per rank.
 9. One JSON line for the kernels (launches: the thirteen proofs' counted
-   runs, the Vision tree's counted build and each mesh rank's counted
-   u32_add run together, and per proof), then, as the last line,
+   runs, the three proofs at other rates, the Vision tree's counted build
+   and each mesh rank's counted u32_add run together, and per proof),
+   then, as the last line,
    {"ok": true, "device": {...}}.
 
 Every failure raises: no phase is caught. Without a CUDA device the script
@@ -180,9 +204,13 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
+import contextlib
 import hashlib
 import importlib
+import io
 import json
+import multiprocessing
 import os
 import random
 import re
@@ -292,8 +320,11 @@ GOLDEN_CARD = {
 # this script's proof sizes where they are below `circuits.GRID_SIZE` or
 # `circuits.CARD_SIZE`, to keep the whole run under 800 s: merkle_tree at
 # 2^19 leaves, 2^11 opened (`circuits.merkle_opened`), half its card
-# instance (keccak_lookups at half its size took as long as at 2^13)
-SMOKE_SIZE = {"merkle_tree": 19}
+# instance (keccak_lookups at half its size took as long as at 2^13), and
+# u32_mul at 2^19 products, half its card size, for the rate and command
+# line phases (its zerocheck is device-bound, so its time halves with it;
+# the host-bound exp and gpa proofs barely move with their size)
+SMOKE_SIZE = {"merkle_tree": 19, "u32_mul": 19}
 # The JAX package's proof of `m3.instances.grouped_lookup_exp_instance(17)`
 # (lookups, an exponentiation and two u32_add tables of one structure;
 # log_inv_rate 1), (bytes, sha256), computed on the CPU with binius_tpu
@@ -301,6 +332,61 @@ SMOKE_SIZE = {"merkle_tree": 19}
 #   python scripts/port_golden_proof.py --circuit grouped_lookup_exp --seed 17
 GOLDEN_GROUPED_LOOKUP_EXP = (120816,
                              "e0872180579ef3a25c67755a0a59b9a17a2c0ca23115a13787cefc7d776dbeec")
+# The JAX package's proofs at code rates 1/4 and 1/8 (`log_inv_rate` 2 and
+# 3), seed 0: (circuit, size, log_inv_rate) -> (proof bytes, sha256),
+# computed on the CPU with binius_tpu (jax 0.9.0) by
+#   python scripts/port_golden_proof.py --circuit u32_add --size 11 --log-inv-rate 2 3
+#   python scripts/port_golden_proof.py --circuit sha256 --size 0 --log-inv-rate 2
+#   python scripts/port_golden_proof.py --circuit u32_add --size 6 --log-inv-rate 2 3
+# (5.5 to 9.2 minutes each); this script holds the first two lines' on the
+# card and through the plain versions on the CPU, the CPU tests the last's
+# (tests/test_torch_rates.py)
+GOLDEN_RATES_CPU = {
+    ("u32_add", 6, 2): (11408, "3a2ad2e3d89c75998c3d0bd587d4340c9652408b21224f6cecf3155d661d74d7"),
+    ("u32_add", 6, 3): (15504, "2729cd49d2622639440714dd0c40183d5c45f8e60a4dc040b8c4083b9c82c633"),
+}
+GOLDEN_RATES = {
+    ("u32_add", 11, 2): (66752, "6403bcea3ae3f29557fdab444fa41ce3966dc48097103c8415d37d40850ec0b7"),
+    ("u32_add", 11, 3): (70816, "b63b5bd46ed40682501a12320ef7fc914d93ae127e39a536034d30d3667e81ef"),
+    ("sha256", 0, 2): (279312, "44c43239b0e825b0aff7e52c301f07fe3bcd66978b9fed27212d1ccb10379038"),
+}
+# the card-size proofs at those rates: u32_add at --log-rows, sha256 at its
+# `circuits.CARD_SIZE`
+RATE_PROOFS = (("u32_add", 2), ("u32_add", 3), ("sha256", 2))
+# the example command lines (`binius_tpu_torch.examples`) and the metric
+# lines each prints after its first, in the JAX example's order
+EXAMPLE_LINES = {
+    "u32_add": ("trace-gen-time", "prove-time", "prove.", "proof-size", "verify-time"),
+    "b32_mul": ("trace-gen-time", "prove-time", "prove.", "proof-size", "verify-time"),
+    "bitwise_ops": ("trace-gen-time", "prove-time", "proof-size", "verify-time"),
+    "u32_mul_gkr": ("trace-gen-time", "prove-time", "prove.", "proof-size", "verify-time"),
+    "sha256": ("trace-gen-time", "validate-time", "prove-time", "prove.", "proof-size",
+               "verify-time"),
+    "groestl": ("trace-gen-time", "validate-time", "prove-time", "prove.", "proof-size",
+                "verify-time"),
+    "keccak": ("trace-gen-time", "validate-time", "prove-time", "proof-size", "verify-time"),
+    "keccak_lookups": ("trace-gen-time", "validate-time", "prove-time", "proof-size",
+                       "verify-time"),
+    "merkle_tree": ("trace-gen-time", "validate-time", "prove-time", "proof-size",
+                    "verify-time"),
+}
+# fault C5's phase: K3 and K4 at each (data level, twiddle level) pair, each
+# at the shapes of LEVEL_SHAPES[tl]: (log_x, log_y, log_z), coset bits (the
+# coset index the same), skip_rounds. One shape has intra-word stages and a
+# coset (K3 alone at B8 twiddles, whose domain holds 2^8 points), one has
+# cross stages (K4, and K3 for the rest); at B16 one shape has both. B4's
+# first has blocks smaller than a word on a coset (fault C6's shape)
+LEVEL_PAIRS = ((3, 3), (4, 3), (5, 3), (7, 3), (4, 4), (5, 4), (7, 4), (5, 2), (5, 1), (5, 0))
+LEVEL_SHAPES = {
+    0: (((4, 1, 12), 0, 0), ((16, 1, 0), 0, 0)),
+    1: (((14, 2, 0), 0, 0),),
+    2: (((0, 3, 14), 1, 1), ((13, 4, 0), 0, 1)),
+    3: (((2, 7, 8), 1, 1), ((10, 7, 0), 1, 1), ((9, 8, 0), 0, 0)),
+    4: (((1, 16, 0), 0, 1), ((1, 15, 1), 1, 0)),
+}
+# section 8's proofs through the plain versions on the CPU: worker
+# processes and the torch threads of each (the card's host has 8 cores)
+PLAIN_WORKERS, PLAIN_THREADS = 3, 2
 # the mesh phase: ranks (two on one card over gloo, or one per card over
 # NCCL where the machine has as many cards) and the sharded NTT's size (B32)
 MESH_WORLD = 2
@@ -364,17 +450,19 @@ def mul_gates(level: int) -> int:
 
 
 def ntt_ops(plan, stages) -> int:
-    """Gate count of the butterfly stages: per network and group, the B32
-    network, 32 mask expansions of 3 ops, and the XORs. A word-aligned stage
-    runs one network per word pair; an intra-word stage scales only the v
-    half of each word, so two words' v halves make one network."""
-    groups = 1 << (plan.dl - 5)
+    """Gate count of the butterfly stages: a level-dl transform over
+    level-tl twiddles is 2^(dl - tl) level-tl transforms on plane groups of
+    P = 2^tl planes; per network and group, the level-tl network, P mask
+    expansions of 3 ops, and the XORs. A word-aligned stage runs one
+    network per word pair; an intra-word stage scales only the v half of
+    each word, so two words' v halves make one network."""
+    groups, P = 1 << (plan.dl - plan.tl), 1 << plan.tl
     ops = 0
     for st in stages:
         if st.d_elems < 32:
-            ops += plan.n_words // 2 * groups * (mul_gates(5) + 96 + 2 * 32 * 8)
+            ops += plan.n_words // 2 * groups * (mul_gates(plan.tl) + 3 * P + 2 * P * 8)
         else:
-            ops += plan.n_words // 2 * groups * (mul_gates(5) + 96 + 64)
+            ops += plan.n_words // 2 * groups * (mul_gates(plan.tl) + 3 * P + 2 * P)
     return ops
 
 
@@ -546,6 +634,91 @@ def check_wire_formats(what: str, core):
     log(f"{what}: BTPUCS03 {len(raw)} bytes (sha256 {hashlib.sha256(raw).hexdigest()}) read "
         f"back, same bytes and digest; {note} ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
     return back
+
+
+def level_checks(dev, gen) -> int:
+    """Fault C5's checks: K3 and K4 (`bitsliced_ntt.transform_planes`) at
+    each of LEVEL_PAIRS on random planes from `gen`, at LEVEL_SHAPES,
+    forward and inverse, each launch count asserted (K3 once where the plan
+    has local stages, K4 once per cross run; K4 at least once per pair) and
+    each result bit-equal to the stages' plain version on the card.
+    Returns the number of transforms checked."""
+    from binius_tpu_torch import cuda_lib
+    from binius_tpu_torch.fields import bitslice_cuda, tower
+    from binius_tpu_torch.ntt import additive_ntt
+    from binius_tpu_torch.ntt import bitsliced_ntt as bn
+
+    def plain_planes(p_, tw_, x):
+        for si, st in enumerate(p_.stages):
+            x = bn._stage_plain(p_, st, x, tw_[si])
+        return x
+
+    n_level_cases = 0
+    for dl, tl in LEVEL_PAIRS:
+        k4_runs = 0
+        for shape, coset_bits, skip in LEVEL_SHAPES[tl]:
+            dom_l = additive_ntt.NTTDomain.create(tl, shape[1] + coset_bits)
+            n_l = 1 << sum(shape)
+            lo, hi = (0, 1 << (1 << dl)) if dl < 5 else (-2 ** 31, 2 ** 31 - 1)
+            x = torch.randint(lo, hi, tower.elem_shape(dl, (n_l,)), dtype=torch.int32,
+                              device=dev, generator=gen)
+            planes_l = bitslice_cuda.to_bitsliced(dl, x)
+            for inverse in (False, True):
+                p_l, tw_np_l = bn._make_plan(dom_l, dl, shape, coset_bits, coset_bits, skip,
+                                             inverse)
+                tw_l = bn._dev_tw(p_l, tw_np_l, dev)
+                runs_l = bn._cross_runs(p_l)
+                cuda_lib.reset_launches()
+                got = bn.transform_planes(dom_l, planes_l, dl, shape, coset_bits, coset_bits,
+                                          skip, inverse)
+                torch.cuda.synchronize()
+                want = {**dict.fromkeys(cuda_lib.KERNELS, 0), "k3_ntt_local": int(p_l.n_local > 0),
+                        "k4_ntt_cross": len(runs_l)}
+                if dict(cuda_lib.launches) != want:
+                    raise AssertionError(f"C5 dl {dl} tl {tl} {shape}: launches "
+                                         f"{cuda_lib.launches}, want {want}")
+                if not torch.equal(got, plain_planes(p_l, tw_l, planes_l.clone())):
+                    raise AssertionError(f"C5 dl {dl} tl {tl} {shape} inverse {inverse}: "
+                                         f"kernels != plain version")
+                k4_runs += len(runs_l)
+                n_level_cases += 1
+                log(f"C5: dl {dl}, tl {tl}, shape {shape}, coset {coset_bits}/{coset_bits}, skip "
+                    f"{skip}, {'inverse' if inverse else 'forward'}: {len(p_l.stages)} stages, "
+                    f"{p_l.n_local} in K3, cross runs {runs_l}; bit-equal to the plain version")
+        if not k4_runs:
+            raise AssertionError(f"C5 dl {dl} tl {tl}: K4 never launched")
+    return n_level_cases
+
+
+def plain_proof(circuit: str, size: int, seed: int, rate: int) -> tuple[bytes, float]:
+    """A worker process's job: the proof of `circuits.instance(circuit,
+    size, seed)` at code rate 2^-rate through the plain versions on the CPU,
+    and its seconds."""
+    from binius_tpu_torch import circuits
+    from binius_tpu_torch.constraint_system import prove as csp
+
+    torch.set_num_threads(PLAIN_THREADS)
+    t0 = time.perf_counter()
+    core, witness, stmt = circuits.instance(circuit, size, seed, "cpu")
+    proof = csp.prove(core, witness, log_inv_rate=rate, device="cpu", **stmt)
+    return proof, time.perf_counter() - t0
+
+
+def check_example(name: str, out: str, metrics: tuple, device_name: str,
+                  n_phases: int) -> None:
+    """An example command line's output: the device named on the first
+    line, then the metric lines in the JAX example's order, each once but
+    `prove.<phase>`, once per phase of the `n_phases`."""
+    lines = out.splitlines()
+    if not lines or not lines[0].startswith(f"{name}: proving ") or \
+            not lines[0].endswith(f" on {device_name}"):
+        raise AssertionError(f"command line {name}: first line {lines[:1]}")
+    heads = [re.match(r"\s*([a-z][\w-]*\.?)", ln).group(1) for ln in lines[1:]]
+    if [h for i, h in enumerate(heads) if h not in heads[:i]] != list(metrics):
+        raise AssertionError(f"command line {name}: lines {heads}, want {metrics}")
+    want = len(metrics) + (n_phases - 1 if "prove." in metrics else 0)
+    if len(heads) != want:
+        raise AssertionError(f"command line {name}: {len(heads)} lines {heads}, want {want}")
 
 
 def check_trace(path: str, times: dict) -> None:
@@ -864,9 +1037,9 @@ def main() -> int:
         per_src[src] = per_src.get(src, 0) + v
     log(f"ptxas spill bytes (stores + loads) per source: {per_src}")
     # no K1 or K2 function and no kernel of K3-K6 (both directions of the
-    # NTT's) may spill
-    for what, n_fn in (("tower_mul.cu", 1), ("transpose32.cu", 1), ("ntt_local_kernel", 2),
-                       ("ntt_cross_kernel", 2), ("leaf_kernel", 1), ("leaf_lanes_kernel", 1),
+    # NTT's, at each of the six twiddle levels) may spill
+    for what, n_fn in (("tower_mul.cu", 1), ("transpose32.cu", 1), ("ntt_local_kernel", 12),
+                       ("ntt_cross_kernel", 12), ("leaf_kernel", 1), ("leaf_lanes_kernel", 1),
                        ("pairs_kernel", 1), ("tail_kernel", 1)):
         hits = {k: v for k, v in spills.items() if k[0] == what or what in k[1]}
         if len(hits) < n_fn or any(hits.values()):
@@ -1610,6 +1783,41 @@ def main() -> int:
         f"= the stage loop on the card")
     phases.done("C1 small transforms")
 
+    # 6b. K3 and K4 at every twiddle level the Pallas kernels take (fault
+    # C5: twiddles below B32, data below B32), each case bit-equal to the
+    # plain version on the card with its launches asserted; the B8-domain
+    # transform of 2^20 B32 elements that raised before against the stage
+    # loop, and K3 and K4 timed at its plan
+    n_level_cases = level_checks(dev, gen)
+    ntt_b8 = additive_ntt.AdditiveNTT(additive_ntt.NTTDomain.create(3, 8))
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (1 << 20,), dtype=torch.int32, device=dev,
+                      generator=gen)
+    cuda_lib.reset_launches()
+    got = ntt_b8.forward(x, 5, (12, 8, 0), device=dev)
+    torch.cuda.synchronize()
+    counts_b8 = dict(cuda_lib.launches)
+    if not torch.equal(got, ntt_b8._stage_loop(x, 5, (12, 8, 0), 0, 0, 0, False)):
+        raise AssertionError("C5: the B8-domain transform of 2^20 B32 elements != stage loop")
+    if not all(counts_b8[k] for k in ("k2_transpose32", "k3_ntt_local", "k4_ntt_cross")):
+        raise AssertionError(f"C5: the B8-domain transform missed a kernel ({counts_b8})")
+    log(f"C5: {n_level_cases} transforms at {len(LEVEL_PAIRS)} (dl, tl) pairs bit-equal; "
+        f"AdditiveNTT over NTTDomain.create(3, 8) on 2^20 B32 elements, shape (12, 8, 0) "
+        f"(launches {counts_b8}) = the stage loop on the card")
+    p_b8, tw_np_b8 = bn._make_plan(ntt_b8.domain, 5, (12, 8, 0), 0, 0, 0, False)
+    tw_b8 = bn._dev_tw(p_b8, tw_np_b8, dev)
+    planes_b8 = bitslice_cuda.to_bitsliced(5, x)
+    after_b8, runs_b8, n_b8 = check_cross(p_b8, tw_b8, planes_b8, "B8 twiddles")
+    report("k4_ntt_cross", "binius_tpu_torch/csrc/ntt.cu", "binius_tpu/ntt/bitsliced_ntt.py:295",
+           after_b8, cross_p(p_b8, tw_b8, planes_b8),
+           lambda x_: cross_k(p_b8, tw_b8, x_), lambda x_: cross_p(p_b8, tw_b8, x_),
+           n_bytes=2 * planes_b8.numel() * 4 + n_b8 * p_b8.n_words * 4,
+           n_ops=ntt_ops(p_b8, [p_b8.stages[si] for f, n in runs_b8 for si in range(f, f + n)]),
+           setup=planes_b8.clone, row=False,
+           label=f"B8 twiddles on B32 data, shape (12, 8, 0), {n_b8} stages in runs {runs_b8}")
+    check_local(p_b8, tw_b8, after_b8, "B8 twiddles on B32 data, shape (12, 8, 0)")
+    del x, got, planes_b8, after_b8
+    phases.done("C5 twiddle levels")
+
     # 7. the proofs, the main path: the u32_add constraint system, then the
     # reference grid's other circuits, each through `constraint_system.prove`
     # on the card at its grid size
@@ -1620,10 +1828,10 @@ def main() -> int:
 
     grouped = install_grouped_spy()   # the grouped provers' claims, per proof
 
-    def commit_plan(core):
+    def commit_plan(core, rate):
         """(K4 launches the commit's NTT makes, the plan's description)."""
         layout = csp.CommitLayout.from_system(core)
-        p_ = csp.make_fri_params(layout.commit_meta, LOG_INV_RATE)
+        p_ = csp.make_fri_params(layout.commit_meta, rate)
         n = 1 << (p_.log_batch_size + p_.log_code_len)
         if not bn.supported(5, fri.LEVEL, n):
             return 0, f"2^{n.bit_length() - 1} elements, the stage loop"
@@ -1719,25 +1927,28 @@ def main() -> int:
             f"{t_kernel * 1e3:.1f} ms) = the plain bitslice.mul on the card, layer by layer "
             f"({t_plain * 1e3:.1f} ms)")
 
-    def drive_proof(circuit, size):
-        """Prove `circuit` at 2^size on the card: the first run's time and
-        split, with the commit's codeword and every Merkle tree it builds
-        held against the plain versions of K2-K6 on the same inputs; one
-        run counted (every launch counter set to 0 just before, read just
-        after; no host Grøstl compression); its bytes, sha256 and peak
-        memory and bytes per phase (summing to its length); verify
-        accepting it and rejecting a flipped byte; the warm time (median of
-        3: the counted run and two more) with its split, the bytes equal
-        across runs, and the verify time: the median of the accepting verify
-        and two verifies against the system read back from its BTPUCS03
-        bytes (whose digest, bytes and canonical form read back the same).
-        Returns the counted run's launches."""
+    def drive_proof(circuit, size, rate=LOG_INV_RATE, warm=2):
+        """Prove `circuit` at 2^size on the card at code rate 2^-rate: the
+        first run's time and split, with the commit's codeword and every
+        Merkle tree it builds held against the plain versions of K2-K6 on
+        the same inputs; one run counted (every launch counter set to 0 just
+        before, read just after; no host Grøstl compression); its bytes,
+        sha256 and peak memory and bytes per phase (summing to its length);
+        verify accepting it and rejecting a flipped byte; the warm time
+        (median of 1 + `warm`: the counted run and `warm` more) with its
+        split, the bytes equal across runs, and the verify time: the median
+        of the accepting verify and `warm` verifies against the system read
+        back from its BTPUCS03 bytes (whose digest, bytes and canonical form
+        read back the same; checked where `warm` > 0). Returns the counted
+        run's launches."""
         t0 = time.perf_counter()
         core, witness, stmt = circuits.instance(circuit, size, args.seed, dev)
         torch.cuda.synchronize()
         t_inst = time.perf_counter() - t0
-        k4_want, plan_txt = commit_plan(core)
-        wire_core = check_wire_formats(f"{circuit} 2^{size} system", core)
+        k4_want, plan_txt = commit_plan(core, rate)
+        wire_core = check_wire_formats(f"{circuit} 2^{size} system", core) if warm else None
+        if rate != LOG_INV_RATE:
+            circuit = f"{circuit} rate {rate}"
         log(f"proof: {circuit} 2^{size} (seed {args.seed}): {len(core.oracles)} oracles, "
             f"{len(core.oracles.committed_ids())} committed, "
             f"{sum(len(c.zero_constraints) for c in core.constraint_sets)} zero constraints, "
@@ -1761,7 +1972,7 @@ def main() -> int:
 
         fri.fri_commit, groestl_cuda.tree_levels = recording_commit, recording_tree
         t0 = time.perf_counter()
-        csp.prove(core, witness, **stmt)
+        csp.prove(core, witness, log_inv_rate=rate, **stmt)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
         fri.fri_commit, groestl_cuda.tree_levels = fri_commit, tree_levels
@@ -1794,7 +2005,7 @@ def main() -> int:
         cuda_lib.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = csp.prove(core, witness, **stmt)
+        proof = csp.prove(core, witness, log_inv_rate=rate, **stmt)
         torch.cuda.synchronize()
         log(f"proof {circuit} stage 2 (grouping on, the CUDA default): {len(grouped)} grouped "
             f"provers holding {sum(grouped)} claims {list(grouped)}; stage 2 wall "
@@ -1837,21 +2048,21 @@ def main() -> int:
         if core.flushes or core.non_zero_claims:
             check_gpa_layers(core, witness)
         t0 = time.perf_counter()
-        csp.verify(core, proof, **stmt)
+        csp.verify(core, proof, log_inv_rate=rate, **stmt)
         splits["verify"].append((time.perf_counter() - t0) * 1e3)
         log(f"proof {circuit} verifies ({splits['verify'][0]:.1f} ms)")
         bad = bytearray(proof)
         bad[len(bad) // 3] ^= 1
         try:
-            csp.verify(core, bytes(bad), **stmt)
+            csp.verify(core, bytes(bad), log_inv_rate=rate, **stmt)
         except (ValueError, EOFError) as e:
             log(f"proof {circuit} with byte {len(bad) // 3} flipped: rejected ({e})")
         else:
             raise AssertionError(f"{circuit}: a proof with a flipped byte was accepted")
-        for _ in range(2):
+        for _ in range(warm):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            again = csp.prove(core, witness, **stmt)
+            again = csp.prove(core, witness, log_inv_rate=rate, **stmt)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             if again != proof:
@@ -1860,13 +2071,14 @@ def main() -> int:
                 splits[k].append(csp.last_phase_times[k] * 1e3)
             splits["total"].append((t1 - t0) * 1e3)
             # verify against the system read back from its wire bytes
-            csp.verify(wire_core, again, **stmt)
+            csp.verify(wire_core, again, log_inv_rate=rate, **stmt)
             splits["verify"].append((time.perf_counter() - t1) * 1e3)
         split = {k: statistics.median(splits[k]) for k in names}
-        log("proof %s 2^%d, warm, median of 3: the counted run and two more (ms; verify apart: "
-            "the accepting verify against the system and two against the deserialized "
+        log("proof %s 2^%d, warm, median of %d: the counted run and %d more (ms; verify apart: "
+            "the accepting verify against the system and %d against the deserialized "
             "system): %s" % (
-                circuit, size, ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+                circuit, size, warm + 1, warm, warm,
+                ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
         if circuit in ("keccak", "merkle_tree"):
             stage2_regimes(f"{circuit} 2^{size}", core, witness, grouped)
         return counts
@@ -1886,9 +2098,64 @@ def main() -> int:
         phases.done(f"proof {circuit}")
     proof_launches["vision_tree"] = counts_v
 
+    # 7b. other code rates and the command lines: the card-size proofs at
+    # log_inv_rate 2 and 3 (the counted run the one warm run; their goldens
+    # are section 8's), the nine example command lines on the card at their
+    # JAX defaults in-process, and u32_add's again as `python -m`, run
+    # beside them
+    for circuit, rate in RATE_PROOFS:
+        size = args.log_rows if circuit == "u32_add" else circuits.CARD_SIZE[circuit]
+        proof_launches[f"{circuit} rate {rate}"] = drive_proof(circuit, size, rate, warm=0)
+        phases.done(f"proof {circuit} rate {rate}")
+    device_name = torch.cuda.get_device_name(0)
+    sub = subprocess.Popen([sys.executable, "-m", "binius_tpu_torch.examples.u32_add"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t_sub = time.perf_counter()
+    for name, metrics in EXAMPLE_LINES.items():
+        mod = importlib.import_module(f"binius_tpu_torch.examples.{name}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main([])
+        check_example(name, out.getvalue(), metrics, device_name, len(csp.last_phase_times))
+        log(f"command line {name} (its defaults) in-process, {time.perf_counter() - t0:.1f} s: "
+            + " | ".join(ln.strip() for ln in out.getvalue().splitlines()))
+    try:
+        sub_out, sub_err = sub.communicate(timeout=600)
+    finally:
+        sub.kill()
+    if sub.returncode:
+        raise AssertionError(f"python -m binius_tpu_torch.examples.u32_add: exit "
+                             f"{sub.returncode}: {sub_err[-2000:]}")
+    check_example("u32_add", sub_out, EXAMPLE_LINES["u32_add"], device_name,
+                  len(csp.last_phase_times))
+    log(f"command line python -m binius_tpu_torch.examples.u32_add (beside the others), "
+        f"{time.perf_counter() - t_sub:.1f} s: "
+        + " | ".join(ln.strip() for ln in sub_out.splitlines()))
+    phases.done("command lines")
+
     # 8. bytes: the JAX package's digest at 2^16 rows, and the same opening
     # composed from the plain versions on the CPU (at the golden's depth it
-    # runs two FRI oracles, as the main path runs three, in a few seconds)
+    # runs two FRI oracles, as the main path runs three, in a few seconds).
+    # The golden proofs through the plain versions on the CPU run in
+    # PLAIN_WORKERS worker processes beside the card's proofs of this
+    # section (no timed phase runs meanwhile)
+    plain_jobs = [("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, 1)] + [
+        (c, size, 0, 1) for c, (size, _, _) in [*GOLDEN_CIRCUITS.items(), *GOLDEN_CARD.items()]
+    ] + [(c, size, 0, rate) for c, size, rate in GOLDEN_RATES]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    plain = {job: pool.submit(plain_proof, *job) for job in plain_jobs}
+
+    def plain_bytes(job, want, what):
+        """The worker's proof of `job` against the card's bytes `want`."""
+        proof, secs = plain[job].result()
+        if proof != want:
+            raise AssertionError(f"{what}: plain-path proof differs from the kernel path")
+        log(f"{what} through the plain versions on the CPU ({secs:.1f} s in a worker): the "
+            f"kernel path's bytes")
+
     g_proof = open_commitment(g_inst)
     g_digest = hashlib.sha256(g_proof).hexdigest()
     if g_digest != GOLDEN_OPEN_16:
@@ -1930,16 +2197,11 @@ def main() -> int:
     p16 = csp.prove(core16, wit16)
     check_digest(f"proof 2^{GOLDEN_LOG_ROWS} rows, seed {GOLDEN_SEED} on the card", p16,
                  GOLDEN_PROOF_16)
-    t0 = time.perf_counter()
-    p16_cpu = csp.prove(*circuits.instance("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, cpu)[:2],
-                        device=cpu)
-    if p16_cpu != p16:
-        raise AssertionError("plain-path proof differs from the kernel path")
-    log(f"proof 2^{GOLDEN_LOG_ROWS} rows through the plain versions on the CPU "
-        f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")
-    phases.done("golden and plain proofs")
-    # the other circuits at small sizes: the JAX package's digests on the
-    # card, and the same proofs through the plain versions on the CPU
+    card = {("u32_add", GOLDEN_LOG_ROWS, GOLDEN_SEED, 1): (p16, f"proof 2^{GOLDEN_LOG_ROWS} rows")}
+    phases.done("golden proofs")
+    # the other circuits at small sizes and at other code rates: the JAX
+    # package's digests on the card, and the same proofs through the plain
+    # versions on the CPU (the workers')
     for circuit, (size, n_bytes, sha) in [*GOLDEN_CIRCUITS.items(), *GOLDEN_CARD.items()]:
         core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, dev)
         if GOLDEN_CIRCUITS.get(circuit, (None,))[0] == size:
@@ -1954,12 +2216,16 @@ def main() -> int:
                          csp.prove(core_c, wit_c, group_claims=False, **stmt_c), (n_bytes, sha))
             check_digest(f"{circuit} proof 2^{size} with group_claims=True",
                          csp.prove(core_c, wit_c, group_claims=True, **stmt_c), (n_bytes, sha))
-        t0 = time.perf_counter()
-        core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, cpu)
-        if csp.prove(core_c, wit_c, device=cpu, **stmt_c) != pc:
-            raise AssertionError(f"{circuit}: plain-path proof differs from the kernel path")
-        log(f"{circuit} proof 2^{size} through the plain versions on the CPU "
-            f"({time.perf_counter() - t0:.1f} s): the kernel path's bytes")
+        card[(circuit, size, 0, 1)] = (pc, f"{circuit} proof 2^{size}")
+    for (circuit, size, rate), want_r in GOLDEN_RATES.items():
+        core_c, wit_c, stmt_c = circuits.instance(circuit, size, 0, dev)
+        pc = csp.prove(core_c, wit_c, log_inv_rate=rate, **stmt_c)
+        check_digest(f"{circuit} proof 2^{size}, seed 0, rate {rate} on the card", pc, want_r)
+        csp.verify(core_c, pc, log_inv_rate=rate, **stmt_c)
+        card[(circuit, size, 0, rate)] = (pc, f"{circuit} proof 2^{size} rate {rate}")
+    for job in plain_jobs:
+        plain_bytes(job, *card[job])
+    pool.shutdown()
     phases.done("golden and plain circuit proofs")
 
     # 8b. the mesh: ranks spawned on the card, every proof's bytes those of

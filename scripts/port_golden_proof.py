@@ -76,18 +76,21 @@ instance helpers:
   bits from `random.Random(7).randrange(2)` (out, a, b per claim in turn);
   it prints the skip, the transcript's length and its sha256.
 
-The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=1)`
-(with the boundaries or the table sizes where the instance has them),
-checked with the JAX verifier:
+The proof is `constraint_system.prove.prove(core, witness, log_inv_rate=r)`
+for each rate r of `--log-inv-rate` (1 by default; with the boundaries or
+the table sizes where the instance has them), checked with the JAX
+verifier:
 
     python scripts/port_golden_proof.py [--circuit u32_add ...] [--size 16] [--seed 0]
+        [--log-inv-rate 1 2 3]
 
 For each circuit named it prints the system digest and the sha256 of its
-`constraint_system.serialization.serialize` bytes, then the proof's
-length and sha256 and its bytes per phase (`last_phase_sizes`; minutes on
-a CPU, most of it compiling; the circuits named together share one
-process's compiled functions). `--systems-only` prints the first line
-alone and proves nothing.
+`constraint_system.serialization.serialize` bytes, then, for each rate,
+the proof's length and sha256 and its bytes per phase
+(`last_phase_sizes`; minutes on a CPU, most of it compiling; the circuits
+and rates named together share one process's compiled functions; a rate
+other than 1 is named in the line as `rate r`). `--systems-only` prints
+the first line alone and proves nothing.
 """
 
 from __future__ import annotations
@@ -472,6 +475,8 @@ def main() -> None:
     ap.add_argument("--size", "--log-rows", type=int, default=None,
                     help="log2 of the rows, products or permutations")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-inv-rate", type=int, nargs="+", default=[1],
+                    help="log2 of the inverse code rate of each proof")
     ap.add_argument("--systems-only", action="store_true",
                     help="print each system's digest and serialization sha256, prove nothing")
     args = ap.parse_args()
@@ -501,11 +506,13 @@ def main() -> None:
         print(circuit, size, "digest", core.digest().hex(), "serialize", wire, flush=True)
         if args.systems_only:
             continue
-        proof = csp.prove(core, witness, log_inv_rate=1, **kw)
-        sizes = dict(csp.last_phase_sizes)
-        csp.verify(core, proof, log_inv_rate=1, **kw)
-        print(circuit, size, len(proof), hashlib.sha256(proof).hexdigest(), flush=True)
-        print(circuit, size, "phase sizes", json.dumps(sizes), flush=True)
+        for rate in args.log_inv_rate:
+            proof = csp.prove(core, witness, log_inv_rate=rate, **kw)
+            sizes = dict(csp.last_phase_sizes)
+            csp.verify(core, proof, log_inv_rate=rate, **kw)
+            tag = (circuit, size) + (("rate", rate) if rate != 1 else ())
+            print(*tag, len(proof), hashlib.sha256(proof).hexdigest(), flush=True)
+            print(*tag, "phase sizes", json.dumps(sizes), flush=True)
 
 
 if __name__ == "__main__":

@@ -158,11 +158,12 @@ def _rand_level(level, n, seed):
                                                 ).astype(np.uint32)
 
 
-@pytest.mark.parametrize("tl,dl", [(3, 3), (5, 5), (7, 7), (3, 7), (5, 7)])
+@pytest.mark.parametrize("tl,dl", [(3, 3), (5, 5), (7, 7), (3, 7), (5, 7), (4, 4),
+                                   (4, 5)])
 @pytest.mark.parametrize("log_n", [4, 5, 6])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_stage_loop_matches_reference(tl, dl, log_n, inverse):
-    """The packed stage loop at B8, B32 and B128 twiddles on data at or
+    """The packed stage loop at B8, B16, B32 and B128 twiddles on data at or
     above them, n = 16, 32, 64 (one column, a coset of a larger domain),
     against the JAX package's scalar transforms."""
     data = _rand_level(dl, 1 << log_n, seed=log_n + 10 * tl + dl)
