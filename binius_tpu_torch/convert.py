@@ -5,6 +5,10 @@ same bits as ``torch.int32``. `from_reference` and `to_reference` cross
 over with the bits unchanged, whatever the shape: P1 words, (N, 4) B128
 limbs, (N, 8) digests. Evaluation claims and FRI parameters cross as plain
 ints; proofs are plain `bytes` in both packages.
+
+`ints_to_pairs` and `pairs_to_ints` cross between Python-int field elements
+and the (n, 2) little-endian uint64 pairs that the native host library
+(`native/`) reads and writes.
 """
 
 from __future__ import annotations
@@ -29,6 +33,19 @@ def to_reference(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected torch.int32, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+_M64 = (1 << 64) - 1
+
+
+def ints_to_pairs(elems) -> np.ndarray:
+    """B128 elements as ints -> (n, 2) uint64 (low word, high word)."""
+    return np.array([(e & _M64, e >> 64) for e in elems], dtype=np.uint64).reshape(-1, 2)
+
+
+def pairs_to_ints(m: np.ndarray) -> list[int]:
+    """(n, 2) uint64 pairs -> ints."""
+    return [lo | (hi << 64) for lo, hi in m.tolist()]
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """Scalar (Python-int) semantics of the Fan-Paar binary tower fields.
 
-The port's own copy of the pure-Python tower arithmetic of
-`binius_tpu/fields/scalar.py` (the native C dispatch is left out): the
-ground truth that the host-side twiddle tables and the B8 device tables are
-built from, and the verifier's arithmetic.
+The port's copy of `binius_tpu/fields/scalar.py`: the ground truth that the
+host-side twiddle tables and the B8 device tables are built from, and the
+host's arithmetic (transcript math, the verifiers). `mul`, `invert` and
+`pow` run in the native C library (`native/b128.c`) from the operand size
+where it is faster than Python, and in the pure-Python plain versions
+`mul_py`, `invert_py`, `pow_py` below it; `square` is `square_py`.
 
     T_0 = F2,   T_k = T_{k-1}[X_k] / (X_k^2 + X_{k-1}*X_k + 1)   with X_0 = 1.
 
@@ -13,9 +15,12 @@ a0 | (a1 << 2^(k-1)). Levels 0..7 = B1, B2, B4, B8, B16, B32, B64, B128.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
+
+from .. import native
 
 # a multiplicative generator of each level's field (B64's has order 2^64 - 1)
 GENERATORS = {
@@ -213,7 +218,101 @@ def pow_py(level: int, a: int, e: int) -> int:
     return r
 
 
-mul, square, invert, pow = mul_py, square_py, invert_py, pow_py
+# -- native C dispatch (`native/b128.c`) -------------------------------------
+# The C takes an operand at the smallest level that holds it, as `mul_py`
+# computes (the subfields embed as the integer identity). A ctypes call costs
+# about 1-2 us, so a product of operands below PY_MUL_BELOW (B16) and the
+# inverse of an element below PY_INVERT_BELOW (B2) stay in Python, and so
+# does every square (a table entry per byte): there Python was as fast or
+# faster on the card's host (`chip_smoke.py`'s native phase times both).
+PY_MUL_BELOW = 1 << 16
+PY_INVERT_BELOW = 1 << 2
+
+_M64 = (1 << 64) - 1
+# the result of every scalar entry: one buffer, as the port's host algebra
+# runs on one thread per process
+_OUT = (ctypes.c_uint64 * 2)()
+
+
+def _bind_native() -> None:
+    """Bind the C entries once: the first call of each builds the library."""
+    global _tower_mul, _tower_invert, _tower_pow
+    lib = native.get_lib()
+    _tower_mul, _tower_invert, _tower_pow = lib.tower_mul, lib.tower_invert, lib.tower_pow
+
+
+def _first_call(name: str):
+    def call(*args):
+        _bind_native()
+        return globals()[name](*args)
+    return call
+
+
+_tower_mul = _first_call("_tower_mul")
+_tower_invert = _first_call("_tower_invert")
+_tower_pow = _first_call("_tower_pow")
+
+
+def _level_of(m: int) -> int:
+    """The smallest level >= 3 that holds m."""
+    if m < 0x100:
+        return 3
+    if m < 0x10000:
+        return 4
+    if m < 0x100000000:
+        return 5
+    return 6 if m <= _M64 else 7
+
+
+def mul(level: int, a: int, b: int) -> int:
+    """a * b (`mul_py`'s product), in C from `PY_MUL_BELOW` on."""
+    m = a | b
+    if m < PY_MUL_BELOW:
+        return mul_py(level, a, b)
+    _tower_mul(_level_of(m), a & _M64, a >> 64, b & _M64, b >> 64, _OUT)
+    return _OUT[0] | (_OUT[1] << 64)
+
+
+square = square_py
+
+
+def invert(level: int, a: int) -> int:
+    """a^-1 (`invert_py`'s), in C from `PY_INVERT_BELOW` on."""
+    if a < PY_INVERT_BELOW or a == 0:
+        return invert_py(level, a)
+    _tower_invert(_level_of(a), a & _M64, a >> 64, _OUT)
+    return _OUT[0] | (_OUT[1] << 64)
+
+
+def pow(level: int, a: int, e: int) -> int:  # noqa: A001
+    """a^e (`pow_py`'s), in C for exponents below 2^64."""
+    if e >> 64 or e < 0:
+        return pow_py(level, a, e)
+    _tower_pow(_level_of(a), a & _M64, a >> 64, e, _OUT)
+    return _OUT[0] | (_OUT[1] << 64)
+
+
+def mul_pairs(level: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Element-wise products of (k, 2) uint64 pairs (low word, high word)
+    in C (`tower_mul_batch`); below level 7 every element must lie in the
+    level's field (its high word 0)."""
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    if a.shape != b.shape or a.shape[1:] != (2,):
+        raise ValueError(f"mul_pairs: shapes {a.shape} and {b.shape}")
+    if level < 7 and a.size and max(int(a.max()), int(b.max())) >> bits(level):
+        raise ValueError(f"mul_pairs: an element does not lie in level {level}")
+    out = np.empty_like(a)
+    native.get_lib().tower_mul_batch(level, a.ctypes.data, b.ctypes.data, out.ctypes.data,
+                                     a.shape[0])
+    return out
+
+
+def mul_pairs_py(level: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """`mul_pairs`' plain version."""
+    prods = [mul_py(level, a0 | (a1 << 64), b0 | (b1 << 64))
+             for (a0, a1), (b0, b1) in zip(np.asarray(a).tolist(), np.asarray(b).tolist())]
+    return np.array([(v & _M64, v >> 64) for v in prods], dtype=np.uint64).reshape(-1, 2)
 
 
 def multiplicative_order(level: int, a: int) -> int:

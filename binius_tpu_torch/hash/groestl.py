@@ -1,6 +1,6 @@
 """Grøstl-256 (the final SHA-3 submission), from the spec.
 
-Counterpart of `binius_tpu/hash/groestl.py` without its native C dispatch:
+Counterpart of `binius_tpu/hash/groestl.py`:
 
   * the spec tables (AES S-box, GF(2^8)/0x11B products, round constants)
     derived from first principles;
@@ -8,11 +8,14 @@ Counterpart of `binius_tpu/hash/groestl.py` without its native C dispatch:
     (`_permute`, `compress`, `output_transform`, `compress_pairs_t`,
     `leaf_hash_t`), the plain version of K5 and K6, which runs on the host
     (CPU tensors) and on the card alike;
-  * the T-table form on 64-bit column ints (`_ttables`, `_col_consts`,
-    `_permute_cols`, `groestl256`, the incremental `Groestl256` of the
-    transcript): host digests, and the tables that K5 and K6 read;
-  * numpy entry points for the host top of a Merkle tree
-    (`compress_pairs`, `hash_leaves_np`).
+  * the T-table form on 64-bit column ints (`_ttables`, `_col_consts`):
+    the tables that K5, K6 and the native C core (`native/groestl.c`)
+    read, and the pure-Python plain versions `_py_permute_cols`,
+    `_py_compress_cols`, `_py_groestl256`;
+  * the host entries, each in C: `_permute_cols`, `_compress_cols`,
+    `groestl256`, the incremental `Groestl256` of the transcript
+    (`compress_seq_native`), and the numpy batches of host Merkle hashing
+    (`compress_pairs`, `hash_leaves_np` through `digest_rows_native`).
 
 The 512-bit state is an 8x8 byte matrix filled column-wise; compression is
 f(h, m) = P(h ^ m) ^ Q(m) ^ h and the output is trunc_256(P(h) ^ h).
@@ -20,10 +23,13 @@ f(h, m) = P(h ^ m) ^ Q(m) ^ h and the output is trunc_256(P(h) ^ h).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from .. import native
 
 ROUNDS = 10
 ROWS = 8
@@ -176,16 +182,6 @@ def leaf_hash_t(blobs: torch.Tensor) -> torch.Tensor:
     return output_transform(h)
 
 
-def compress_pairs(pairs: np.ndarray) -> np.ndarray:
-    """Host 2-to-1 compression: (..., 64) uint8 numpy -> (..., 32) uint8."""
-    return compress_pairs_t(torch.from_numpy(np.array(pairs, dtype=np.uint8))).numpy()
-
-
-def hash_leaves_np(blobs: np.ndarray) -> np.ndarray:
-    """Host digest of each row: (N, L) uint8 numpy -> (N, 32) uint8."""
-    return leaf_hash_t(torch.from_numpy(np.array(blobs, dtype=np.uint8))).numpy()
-
-
 # ---------------------------------------------------------------------------
 # T-table form on 64-bit columns (byte i of a column = state row i)
 # ---------------------------------------------------------------------------
@@ -233,8 +229,8 @@ def _col_sources(is_q: bool) -> tuple:
     return tuple(tuple((c + shifts[i]) % 8 for i in range(ROWS)) for c in range(COLS))
 
 
-def _permute_cols(cols: list[int], is_q: bool) -> list[int]:
-    """P or Q on a state given as 8 column ints."""
+def _py_permute_cols(cols: list[int], is_q: bool) -> list[int]:
+    """P or Q on a state given as 8 column ints (plain version)."""
     T0, T1, T2, T3, T4, T5, T6, T7 = _ttables()
     consts = _col_consts()[1 if is_q else 0]
     src = _col_sources(is_q)
@@ -256,29 +252,105 @@ def _cols_to_bytes(cols: list[int]) -> bytes:
     return b"".join(c.to_bytes(8, "little") for c in cols)
 
 
-def _compress_cols(h: list[int], m: list[int]) -> list[int]:
-    hp = _permute_cols([a ^ b for a, b in zip(h, m)], False)
-    qm = _permute_cols(m, True)
+def _py_compress_cols(h: list[int], m: list[int]) -> list[int]:
+    hp = _py_permute_cols([a ^ b for a, b in zip(h, m)], False)
+    qm = _py_permute_cols(m, True)
     return [a ^ b ^ c for a, b, c in zip(hp, qm, h)]
+
+
+def _py_groestl256(data: bytes) -> bytes:
+    """One-shot Grøstl-256 digest (plain version, T-table path)."""
+    msg = bytes(data) + groestl256_pad(len(data)).tobytes()
+    h = _bytes_to_cols(IV_256.tobytes())
+    for i in range(len(msg) // 64):
+        h = _py_compress_cols(h, _bytes_to_cols(msg[64 * i:64 * (i + 1)]))
+    x = _py_permute_cols(h, False)
+    return _cols_to_bytes([a ^ b for a, b in zip(x, h)])[32:]
+
+
+# ---------------------------------------------------------------------------
+# The host entries in C (`native/groestl.c`), initialised with the tables
+# above: no constant lives in C
+# ---------------------------------------------------------------------------
+
+_Cols = ctypes.c_uint64 * COLS
+_IV_COLS = _Cols(*_bytes_to_cols(IV_256.tobytes()))
+
+
+@functools.lru_cache(maxsize=None)
+def _native_lib() -> ctypes.CDLL:
+    lib = native.get_lib()
+    t = np.array(_ttables(), dtype=np.uint64)
+    pc, qc = (np.array(c, dtype=np.uint64) for c in _col_consts())
+    sp, sq = (np.array(s, dtype=np.int32) for s in (SHIFTS_P, SHIFTS_Q))
+    lib.groestl_init(t.ctypes.data, pc.ctypes.data, qc.ctypes.data, sp.ctypes.data,
+                     sq.ctypes.data)
+    return lib
+
+
+def _permute_cols(cols: list[int], is_q: bool) -> list[int]:
+    """P or Q on a state given as 8 column ints."""
+    a = _Cols(*cols)
+    _native_lib().groestl_permute(a, int(is_q))
+    return list(a)
+
+
+def _compress_cols(h: list[int], m: list[int]) -> list[int]:
+    """f(h, m) = P(h ^ m) ^ Q(m) ^ h on column ints."""
+    a = _Cols(*h)
+    _native_lib().groestl_compress(a, _Cols(*m))
+    return list(a)
+
+
+def compress_seq_native(h: list[int], blocks: bytes) -> list[int]:
+    """Absorb len(blocks) // 64 blocks into the column state h."""
+    a = _Cols(*h)
+    _native_lib().groestl_compress_seq(a, blocks, len(blocks) // 64)
+    return list(a)
 
 
 def _digest_cols(h: list[int], tail: bytes) -> bytes:
     """Compress the padded tail's blocks into h, then the output transform."""
-    for i in range(len(tail) // 64):
-        h = _compress_cols(h, _bytes_to_cols(tail[64 * i:64 * (i + 1)]))
-    x = _permute_cols(h, False)
-    return _cols_to_bytes([a ^ b for a, b in zip(x, h)])[32:]
+    a = _Cols(*h)
+    out = ctypes.create_string_buffer(32)
+    lib = _native_lib()
+    lib.groestl_compress_seq(a, tail, len(tail) // 64)
+    lib.groestl_output_transform(a, out)
+    return out.raw
 
 
 def groestl256(data: bytes) -> bytes:
-    """One-shot Grøstl-256 digest (host, T-table path)."""
-    msg = bytes(data) + groestl256_pad(len(data)).tobytes()
-    return _digest_cols(_bytes_to_cols(IV_256.tobytes()), msg)
+    """One-shot Grøstl-256 digest."""
+    data = bytes(data)
+    out = ctypes.create_string_buffer(32)
+    _native_lib().groestl_digest(_IV_COLS, data, len(data), out)
+    return out.raw
+
+
+def digest_rows_native(blobs: np.ndarray) -> np.ndarray:
+    """Grøstl-256 of each row: (N, L) uint8 -> (N, 32) uint8."""
+    blobs = np.ascontiguousarray(blobs, dtype=np.uint8)
+    n, length = blobs.shape
+    out = np.empty((n, 32), dtype=np.uint8)
+    _native_lib().groestl_digest_batch(_IV_COLS, blobs.ctypes.data, n, length, out.ctypes.data)
+    return out
+
+
+hash_leaves_np = digest_rows_native
+
+
+def compress_pairs(pairs: np.ndarray) -> np.ndarray:
+    """Host 2-to-1 compression: (..., 64) uint8 numpy -> (..., 32) uint8."""
+    flat = np.ascontiguousarray(pairs, dtype=np.uint8).reshape(-1, 64)
+    out = np.empty((flat.shape[0], 32), dtype=np.uint8)
+    _native_lib().groestl_compress_pairs(flat.ctypes.data, flat.shape[0], out.ctypes.data)
+    return out.reshape(*np.shape(pairs)[:-1], 32)
 
 
 class Groestl256:
     """Incremental Grøstl-256 (update / copy / finalize), the hash of the
-    Fiat-Shamir challenger."""
+    Fiat-Shamir challenger: the column state as 8 ints, the bytes of an
+    unfinished block, the length so far."""
 
     def __init__(self):
         self._buf = bytearray()
@@ -289,9 +361,9 @@ class Groestl256:
         self._buf.extend(data)
         self._n_bytes += len(data)
         n_full = len(self._buf) // 64
-        for i in range(n_full):
-            self._h = _compress_cols(self._h, _bytes_to_cols(self._buf[64 * i:64 * (i + 1)]))
-        del self._buf[:64 * n_full]
+        if n_full:
+            self._h = compress_seq_native(self._h, bytes(self._buf[:64 * n_full]))
+            del self._buf[:64 * n_full]
         return self
 
     def copy(self) -> "Groestl256":

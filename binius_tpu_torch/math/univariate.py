@@ -1,10 +1,11 @@
 """Univariate evaluation domains, Lagrange interpolation, line extrapolation.
 
-The port of `binius_tpu/math/univariate.py` without its native-C path:
-`EvaluationDomain` (host Lagrange evaluation and interpolation of the
-sumcheck round polynomials), Horner evaluation, and the barycentric
-Lagrange evaluations of the univariate-skip zerocheck's domains, whose
-scans run as tower products on a device.
+The port of `binius_tpu/math/univariate.py`: `EvaluationDomain` (host
+Lagrange evaluation and interpolation of the sumcheck round polynomials),
+Horner evaluation, and the barycentric Lagrange evaluations of the
+univariate-skip zerocheck's domains: the weights and the verifier's
+evaluations in the native host library (`native/b128.c`), the prover's as
+tower product scans on its device.
 """
 
 from __future__ import annotations
@@ -12,8 +13,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
+from .. import native
+from ..convert import ints_to_pairs, pairs_to_ints
 from ..device import resolve
 from ..fields import scalar, tower
 from .binary_subspace import BinarySubspace
@@ -109,18 +113,31 @@ def _points_level(points: tuple) -> int:
     return lvl
 
 
-@functools.lru_cache(maxsize=None)
-def barycentric_weights(points: tuple) -> tuple:
-    """w_i = 1 / prod_{j != i} (x_i + x_j) as ints."""
+def _barycentric_weights_py(points: tuple) -> tuple:
+    """`barycentric_weights`' plain version."""
     lvl = _points_level(points)
     out = []
     for i, xi in enumerate(points):
         den = 1
         for j, xj in enumerate(points):
             if j != i:
-                den = scalar.mul(lvl, den, xi ^ xj)
-        out.append(scalar.invert(lvl, den))
+                den = scalar.mul_py(lvl, den, xi ^ xj)
+        out.append(scalar.invert_py(lvl, den))
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _domain_pairs(points: tuple) -> tuple:
+    """The points and their barycentric weights as (n, 2) uint64 pairs."""
+    pts = ints_to_pairs(points)
+    w = np.empty_like(pts)
+    native.get_lib().tower_barycentric_weights(pts.ctypes.data, len(points), w.ctypes.data)
+    return pts, w
+
+
+def barycentric_weights(points: tuple) -> tuple:
+    """w_i = 1 / prod_{j != i} (x_i + x_j) as ints, in C."""
+    return tuple(pairs_to_ints(_domain_pairs(points)[1]))
 
 
 def _scan_mul(t: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -150,9 +167,16 @@ def lagrange_evals_device(points: tuple, z: int, device=None) -> torch.Tensor:
 
 
 def lagrange_evals_np(points: tuple, z: int) -> list[int]:
-    """The same Lagrange evaluations as ints, computed on the CPU (the
-    verifier's host path)."""
-    return tower.to_ints(7, lagrange_evals_device(points, z, "cpu"))
+    """The same Lagrange evaluations as ints, in C (the verifier's host
+    path); `lagrange_evals_device(points, z, "cpu")` is its plain version."""
+    points = tuple(points)
+    pts, w = _domain_pairs(points)
+    n = len(points)
+    scratch = np.empty(4 * n, dtype=np.uint64)
+    out = np.empty((n, 2), dtype=np.uint64)
+    native.get_lib().tower_lagrange_evals(pts.ctypes.data, w.ctypes.data, n, z & ((1 << 64) - 1),
+                                          z >> 64, scratch.ctypes.data, out.ctypes.data)
+    return pairs_to_ints(out)
 
 
 def evaluate_univariate(level: int, coeffs: list[int], z: int) -> int:

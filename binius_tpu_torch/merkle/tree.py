@@ -5,7 +5,8 @@ Counterpart of `binius_tpu/merkle/tree.py`: leaves are byte blobs
 internal nodes use its 2-to-1 compression (`merkle_tree/scheme.rs`: Grøstl-
 256 with the output-transform compression, the default, or Vision Mark-32).
 `MerkleTree` is the host tree (numpy layers, each level one batch of the
-scheme's compression); `commit_codeword_device` builds every layer of a
+scheme's compression: Grøstl's leaves, levels and branch checks in the
+native host library's C); `commit_codeword_device` builds every layer of a
 Grøstl tree, leaf to root, on the codeword's device (K5 and K6 on the card)
 and copies the top layers to the host in one copy. The prover hashes
 nothing on the host. A codeword sharded over a mesh (`parallel.mesh.RowShard`)

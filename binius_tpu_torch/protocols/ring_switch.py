@@ -16,8 +16,8 @@ Counterpart of `binius_tpu/protocols/ring_switch.py` (which mirrors
 A committed multilinear at tower level l with n variables has
 kappa = 7 - l; its eval point splits into prefix (z_0..z_{kappa-1}) and
 suffix; the packed multilinear has n - kappa variables. Bit-packed (P1)
-witnesses stay packed on the device. The native-C host multiply and every
-mesh call of the JAX package are left out: the slice runs on one device.
+witnesses stay packed on the device. The tensor algebra's B128 products run
+in the native host library (`tower_mul_batch`, `native/b128.c`).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from ..convert import ints_to_pairs, pairs_to_ints
 from ..device import resolve
 from ..fields import scalar, tower
 from ..math import mle
@@ -55,18 +56,6 @@ def from_coords(level: int, coords: list[int]) -> int:
     return out
 
 
-def _ints_to_pairs(elems: list) -> np.ndarray:
-    m = np.empty((len(elems), 2), dtype=np.uint64)
-    for i, e in enumerate(elems):
-        m[i, 0] = e & _M64
-        m[i, 1] = e >> 64
-    return m
-
-
-def _pairs_to_ints(m: np.ndarray) -> list:
-    return [int(m[i, 0]) | (int(m[i, 1]) << 64) for i in range(m.shape[0])]
-
-
 @functools.lru_cache(maxsize=None)
 def _coord_layout(level: int):
     """(limb, offset, mask) of the k = 2^(7 - level) coordinates."""
@@ -90,11 +79,6 @@ def _from_coords(level: int, C: np.ndarray) -> np.ndarray:
     return out
 
 
-def _mul_pairs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    return _ints_to_pairs([scalar.mul(LEVEL, x, y)
-                           for x, y in zip(_pairs_to_ints(a), _pairs_to_ints(b))])
-
-
 class TensorAlgElem:
     """2^kappa vertical B128 elements, kappa = 7 - level."""
 
@@ -102,11 +86,11 @@ class TensorAlgElem:
 
     def __init__(self, level: int, elems):
         self.level = level
-        self._m = elems if isinstance(elems, np.ndarray) else _ints_to_pairs(elems)
+        self._m = elems if isinstance(elems, np.ndarray) else ints_to_pairs(elems)
 
     @property
     def elems(self) -> list:
-        return _pairs_to_ints(self._m)
+        return pairs_to_ints(self._m)
 
     @property
     def kappa(self) -> int:
@@ -123,7 +107,8 @@ class TensorAlgElem:
         return TensorAlgElem(self.level, self._m ^ other._m)
 
     def scale_vertical(self, s: int) -> "TensorAlgElem":
-        return TensorAlgElem(self.level, _mul_pairs(self._m, _ints_to_pairs([s] * len(self._m))))
+        return TensorAlgElem(self.level, scalar.mul_pairs(
+            LEVEL, self._m, ints_to_pairs([s] * len(self._m))))
 
     def transpose(self) -> "TensorAlgElem":
         C = _to_coords(self.level, self._m)

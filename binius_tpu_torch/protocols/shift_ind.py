@@ -12,14 +12,18 @@ over y at a field point x (the prover) are carry DPs over the offset's
 bits: `_ll_eval_scalar(b, o, A, B)` is the no-carry-out path of the
 binary addition B = A + o; LogicalRight is (A, B) = (x, y), LogicalLeft
 is (A, B) = (y, x), and CircularLeft = LogicalLeft(o) + LogicalRight(2^b -
-o) (disjoint supports). `apply_shift_device` materializes a shifted
-column.
+o) (disjoint supports). A verifier wave's evaluations run as one carry
+DP in the native host library's B128 batches (`scalar.mul_pairs`), the
+prover's partial multilinears as tensors on its device.
+`apply_shift_device` materializes a shifted column.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..convert import ints_to_pairs, pairs_to_ints
 from ..fields import scalar, tower
 
 LEVEL = 7
@@ -67,42 +71,44 @@ def evaluate_scalar(variant: str, b: int, o: int, x: list[int], y: list[int]) ->
     raise ValueError(variant)
 
 
-def _ll_eval_stacked(b: int, offsets: list[int], a: torch.Tensor, bb: torch.Tensor) -> list[int]:
+def _ll_eval_stacked(b: int, offsets: list[int], a: np.ndarray, bb: np.ndarray) -> list[int]:
     """`_ll_eval_scalar(b, o_i, a_i, b_i)` of E entries at once: a, bb
-    (E, b, 4) B128 points. Each step evaluates both values of the offset's
-    bit and selects per entry."""
-    dev = a.device
-    one = tower.full(LEVEL, (), 1, dev)
-    s = [tower.full(LEVEL, (a.shape[0],), 1, dev), tower.zeros(LEVEL, (a.shape[0],), dev)]
+    (E, b, 2) uint64 pairs of B128 points. Each step evaluates both values
+    of the offset's bit and selects per entry; its products are two C
+    batches (`scalar.mul_pairs`)."""
+    n = a.shape[0]
+    one = np.array([1, 0], dtype=np.uint64)
+    zero = np.uint64(0)
+    s = [np.tile(one, (n, 1)), np.zeros((n, 2), dtype=np.uint64)]
+    steps = [(c, xb) for c in (0, 1) for xb in (0, 1)]
     for k in range(b):
-        obit = torch.tensor([(o >> k) & 1 for o in offsets], dtype=torch.bool,
-                            device=dev)[:, None]
-        sx = tower.mul(LEVEL, torch.stack(s), a[None, :, k])      # s[c] * x
+        obit = np.array([(o >> k) & 1 for o in offsets], dtype=bool)[:, None]
+        sx = scalar.mul_pairs(LEVEL, np.concatenate(s), np.concatenate([a[:, k]] * 2))
+        sx = [sx[:n], sx[n:]]                                     # s[c] * x
         wy = {1: bb[:, k], 0: bb[:, k] ^ one}
-        ns = [torch.zeros_like(s[0]), torch.zeros_like(s[0])]
-        for c in (0, 1):
-            for xb in (0, 1):
-                t = sx[c] if xb else sx[c] ^ s[c]                 # s[c] * w(x bit)
-                # y's required bit is xb ^ o_k ^ c; the carry out is
-                # xb & c when o_k = 0 and xb | c when o_k = 1
-                w = torch.where(obit, wy[xb ^ c ^ 1], wy[xb ^ c])
-                term = tower.mul(LEVEL, t, w)
-                c0, c1 = xb & c, xb | c
-                if c0 == c1:
-                    ns[c0] ^= term
-                else:
-                    ns[c0] ^= torch.where(obit, 0, term)
-                    ns[c1] ^= torch.where(obit, term, 0)
+        terms = scalar.mul_pairs(LEVEL, np.concatenate(
+            [sx[c] if xb else sx[c] ^ s[c] for c, xb in steps]), np.concatenate(
+            [np.where(obit, wy[xb ^ c ^ 1], wy[xb ^ c]) for c, xb in steps]))
+        ns = [np.zeros_like(s[0]), np.zeros_like(s[0])]
+        for j, (c, xb) in enumerate(steps):
+            term = terms[j * n:(j + 1) * n]
+            # y's required bit is xb ^ o_k ^ c; the carry out is xb & c when
+            # o_k = 0 and xb | c when o_k = 1
+            c0, c1 = xb & c, xb | c
+            if c0 == c1:
+                ns[c0] ^= term
+            else:
+                ns[c0] ^= np.where(obit, zero, term)
+                ns[c1] ^= np.where(obit, term, zero)
         s = ns
-    return tower.to_ints(LEVEL, s[0])
+    return pairs_to_ints(s[0])
 
 
 def evaluate_scalar_batch(variants: list[str], bs: list[int], offs: list[int],
-                          x_points: list, y_points: list, device=None) -> list[int]:
+                          x_points: list, y_points: list) -> list[int]:
     """`evaluate_scalar` of k claims (a verifier wave's shift checks) as one
-    stacked carry DP per block size on `device` (the CPU unless named): a
-    circular claim adds the complement offset's entry with the arguments
-    swapped."""
+    stacked carry DP per block size, on the host: a circular claim adds the
+    complement offset's entry with the arguments swapped."""
     out = [0] * len(variants)
     by_b: dict = {}
     for i, b in enumerate(bs):
@@ -124,8 +130,7 @@ def evaluate_scalar_batch(variants: list[str], bs: list[int], offs: list[int],
             vals = [1] * len(entries)
         else:
             pts = [[v for e in entries for v in e[j][:b]] for j in (2, 3)]
-            a, bb = (tower.from_ints(LEVEL, p, device or "cpu").reshape(len(entries), b, 4)
-                     for p in pts)
+            a, bb = (ints_to_pairs(p).reshape(len(entries), b, 2) for p in pts)
             vals = _ll_eval_stacked(b, [e[1] for e in entries], a, bb)
         for (i, *_), v in zip(entries, vals):
             out[i] ^= v

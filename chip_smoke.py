@@ -19,6 +19,21 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    kernel of K3-K6 may spill, K3 and K4 in either direction at each of the
    six twiddle levels), the SASS instruction
    counts of K1, K3, K5 and K6, and the card figures the bounds use.
+2b. The native host library (`binius_tpu_torch/native`, `native_phase`):
+   built with the system C compiler on the card's host (the compiler, the
+   library and the host CPU printed), then each C entry bit-equal to its
+   plain Python version at a card-size proof's sizes, with both times:
+   the transcript's absorb over NATIVE_BLOCKS blocks, `Groestl256`
+   streamed and forked, the one-shot digest, P, Q and the compression;
+   `compress_pairs` over NATIVE_PAIRS pairs and `digest_batch` over
+   NATIVE_ROWS (2^11 rows of 256 bytes, 2 of 16 KiB) against the torch
+   permutation on the CPU; the ring switch's B128 `tower_mul_batch` of
+   NATIVE_PRODUCTS; scalar mul, square, invert and pow at levels 0-7 (us
+   per op; `invert(0)` raises); the barycentric weights and Lagrange
+   evaluations over the zerocheck's domains (NATIVE_DOMAINS: d * 2^k points,
+   z off and on a point, and the 2^k cube) against the torch scans on the
+   CPU; the evalcheck verifier's shift-indicator waves (NATIVE_SHIFT_WAVES)
+   against each claim's scalar DP in Python ints.
 3. One phase per kernel (K1-K6) at the shapes of the main path: the
    kernel's output against its plain PyTorch version on the same inputs
    (bit-equal: every operation is exact over GF(2)), the kernel's and the
@@ -43,8 +58,9 @@ proofs across two ranks of a mesh, byte-equal to one device's.
 5. The opening: one evaluation claim per committed column
    at a point drawn after the witness, proven by commit, `ring_switch.prove`
    and `piop.prove`, with every launch counter set to 0 just before and read
-   just after, and no Grøstl compression on the host (a counter around
-   `groestl.compress_pairs_t`); the port's verifiers accept the proof and
+   just after, and no Grøstl Merkle hashing on the host (a counter around
+   `groestl.compress_pairs_t` and the native library's pair and row
+   batches); the port's verifiers accept the proof and
    reject it with one byte flipped; the warm time (median of 3) and its
    split.
    (The commit and the opening are the earlier slices' main paths, each
@@ -100,14 +116,12 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    the 4-row table, proven through the grand-product phase; its table
    sizes are the proof's first message), then the examples outside the
    grid at `circuits.CARD_SIZE`: sha256 (2^14 SHA-256 compressions,
-   1,344 committed B1 columns of 2^19 bits) and merkle_tree (at
-   `SMOKE_SIZE`, half its card size: 2^11 opened leaves of a 2^19-leaf
-   Grøstl-256 tree, whose levels K6 builds on the card, the paths'
+   1,344 committed B1 columns of 2^19 bits) and merkle_tree (2^12 opened
+   leaves of a 2^20-leaf Grøstl-256 tree, whose levels K6 builds on the card, the paths'
    compressions checked in three nodes tables, through packed, projected
    and shifted columns, with its boundaries and table sizes), u32_sub
-   (2^22 rows, `U32Sub`), u32_mul (at `SMOKE_SIZE`, half its card size:
-   2^19 schoolbook products, `U32Mul`: 128 committed B1 columns of 2^24
-   bits),
+   (2^22 rows, `U32Sub`), u32_mul (2^20 schoolbook products, `U32Mul`:
+   128 committed B1 columns of 2^25 bits),
    barrel_shifter (2^20 rows, each of the three shift kinds by its own
    amounts) and div_uu32 (2^20 divisions, `DivUU32`: a `MulUU32` through
    the exponentiation phase, 64-bit ripple adder and subtracter over bit
@@ -206,6 +220,7 @@ import argparse
 import atexit
 import concurrent.futures
 import contextlib
+import ctypes
 import hashlib
 import importlib
 import io
@@ -317,14 +332,17 @@ GOLDEN_SERIALIZE = {
 GOLDEN_CARD = {
     "merkle_tree": (6, 413184, "09284e3c15eab83ae1cbace6d397729197e1cb9f1a006804a8e66fdc9225e02d"),
 }
-# this script's proof sizes where they are below `circuits.GRID_SIZE` or
-# `circuits.CARD_SIZE`, to keep the whole run under 800 s: merkle_tree at
-# 2^19 leaves, 2^11 opened (`circuits.merkle_opened`), half its card
-# instance (keccak_lookups at half its size took as long as at 2^13), and
-# u32_mul at 2^19 products, half its card size, for the rate and command
-# line phases (its zerocheck is device-bound, so its time halves with it;
-# the host-bound exp and gpa proofs barely move with their size)
-SMOKE_SIZE = {"merkle_tree": 19, "u32_mul": 19}
+# the native phase's sizes (`native_phase`): the transcript's blocks, the
+# host Merkle batches (2-to-1 pairs; leaf rows of 256 bytes and of 16 KiB),
+# the ring switch's B128 products, scalar ops per level, and the
+# univariate-skip zerocheck's domains (d * 2^k points, and the 2^k cube)
+NATIVE_BLOCKS = 1 << 14
+NATIVE_PAIRS = 1 << 12
+NATIVE_ROWS = ((1 << 11, 256), (2, 1 << 14))
+NATIVE_PRODUCTS = 1 << 12
+NATIVE_SCALAR_OPS = 2000
+NATIVE_DOMAINS = ((2, 7), (3, 6), (5, 5), (9, 4))
+NATIVE_SHIFT_WAVES = ((32, 5), (128, 6))
 # The JAX package's proof of `m3.instances.grouped_lookup_exp_instance(17)`
 # (lookups, an exponentiation and two u32_add tables of one structure;
 # log_inv_rate 1), (bytes, sha256), computed on the CPU with binius_tpu
@@ -979,6 +997,210 @@ def mesh_phase(log_rows: int, seed: int, dev, proven: dict) -> dict:
             for r in ranks}
 
 
+def cpu_model() -> str:
+    """The host CPU's model name (/proc/cpuinfo, else lscpu), else its
+    vendor, family and model numbers."""
+    with open("/proc/cpuinfo") as f:
+        info = dict(line.split(":", 1) for line in f if ":" in line)
+    info = {k.strip().lower(): v.strip() for k, v in info.items()}
+    if info.get("model name"):
+        return info["model name"]
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    except OSError:
+        lscpu = ""
+    for line in lscpu.splitlines():
+        if line.lower().startswith("model name:"):
+            return line.split(":", 1)[1].strip()
+    return " ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "stepping")
+                    if k in info) or "unknown"
+
+
+def native_phase(seed: int) -> None:
+    """The native host library (`binius_tpu_torch/native`): built on the
+    card's host, the compiler and the library printed, then every C entry
+    held bit-equal to its plain Python version at the sizes a card-size
+    proof gives it, with both times on the host clock (C: median of 3 after
+    one call; plain: one run)."""
+    from binius_tpu_torch import native
+    from binius_tpu_torch.convert import ints_to_pairs, pairs_to_ints
+    from binius_tpu_torch.fields import scalar, tower
+    from binius_tpu_torch.hash import groestl
+    from binius_tpu_torch.math import univariate
+    from binius_tpu_torch.protocols import shift_ind
+    from binius_tpu_torch.protocols.sumcheck import univariate_zerocheck as uzc
+
+    cc = native.compiler()
+    version = subprocess.run([cc, "--version"], capture_output=True, text=True).stdout
+    t0 = time.perf_counter()
+    so = native.build()
+    native.get_lib()
+    log(f"native: {cc} ({(version.splitlines() or ['?'])[0]}) -> {os.path.relpath(so)} in "
+        f"{time.perf_counter() - t0:.2f} s; host CPU {cpu_model()}, {os.cpu_count()} cores")
+    rng = np.random.default_rng(seed)
+
+    def timed(fn) -> tuple:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def held(name: str, c_fn, plain_fn) -> None:
+        """C against plain: equal results, and both times."""
+        got = c_fn()
+        c_ms = statistics.median(timed(c_fn)[1] for _ in range(3))
+        want, p_ms = timed(plain_fn)
+        if not (np.array_equal(got, want) if isinstance(got, np.ndarray) else got == want):
+            raise AssertionError(f"native {name}: C and plain version differ")
+        log(f"native {name}: bit-equal to plain; C {c_ms:.3f} ms, plain {p_ms:.1f} ms "
+            f"({p_ms / max(c_ms, 1e-6):.0f}x)")
+
+    # Grøstl: the transcript's absorb, its streaming class, the one-shot
+    # digest, P, Q and the compression on column states
+    blocks = rng.integers(0, 256, 64 * NATIVE_BLOCKS, dtype=np.uint8).tobytes()
+    iv = groestl._bytes_to_cols(groestl.IV_256.tobytes())
+
+    def seq_plain():
+        h = iv
+        for i in range(NATIVE_BLOCKS):
+            h = groestl._py_compress_cols(h, groestl._bytes_to_cols(blocks[64 * i:64 * i + 64]))
+        return h
+
+    held(f"compress_seq ({NATIVE_BLOCKS} blocks)",
+         lambda: groestl.compress_seq_native(iv, blocks), seq_plain)
+    data = blocks[:4133]
+
+    def streamed():
+        h = groestl.Groestl256()
+        for i in range(0, len(data), 77):
+            h.update(data[i:i + 77])
+        fork = h.copy().update(b"fork")
+        return h.finalize(), fork.finalize()
+
+    held("Groestl256 update / copy / finalize (4133 bytes in 77-byte writes, a fork)",
+         streamed, lambda: (groestl._py_groestl256(data), groestl._py_groestl256(data + b"fork")))
+    held("groestl256 digest (4133 bytes)", lambda: groestl.groestl256(data),
+         lambda: groestl._py_groestl256(data))
+    states = [[int(v) for v in rng.integers(0, 1 << 64, 8, dtype=np.uint64)] for _ in range(256)]
+    for is_q in (False, True):
+        held(f"permute {'Q' if is_q else 'P'} (256 states)",
+             lambda: [groestl._permute_cols(c, is_q) for c in states],
+             lambda: [groestl._py_permute_cols(c, is_q) for c in states])
+    held("compress (256 states)",
+         lambda: [groestl._compress_cols(c, m) for c, m in zip(states, states[::-1])],
+         lambda: [groestl._py_compress_cols(c, m) for c, m in zip(states, states[::-1])])
+    # host Merkle hashing: 2-to-1 pairs and leaf rows, against the torch
+    # permutation on the CPU (K5's and K6's plain version)
+    pairs = rng.integers(0, 256, (NATIVE_PAIRS, 64), dtype=np.uint8)
+    held(f"compress_pairs ({NATIVE_PAIRS} pairs)", lambda: groestl.compress_pairs(pairs),
+         lambda: groestl.compress_pairs_t(torch.from_numpy(pairs)).numpy())
+    for n, width in NATIVE_ROWS:
+        blobs = rng.integers(0, 256, (n, width), dtype=np.uint8)
+        held(f"digest_batch ({n} rows of {width} bytes)",
+             lambda: groestl.digest_rows_native(blobs),
+             lambda: groestl.leaf_hash_t(torch.from_numpy(blobs)).numpy())
+    # the ring switch's B128 batch products
+    a, b = (ints_to_pairs([int(x) | int(y) << 64 for x, y in
+                           rng.integers(0, 1 << 64, (NATIVE_PRODUCTS, 2), dtype=np.uint64)])
+            for _ in range(2))
+    held(f"tower_mul_batch (B128, {NATIVE_PRODUCTS})", lambda: scalar.mul_pairs(7, a, b),
+         lambda: scalar.mul_pairs_py(7, a, b))
+    # scalar ops at every level, every call through C (the dispatch bounds
+    # set to 0), per op in us; 0, 1 and an exponent of 2^64 and more among them
+    bounds = {k: getattr(scalar, k) for k in ("PY_MUL_BELOW", "PY_INVERT_BELOW")}
+    n_ops = NATIVE_SCALAR_OPS
+    out = (ctypes.c_uint64 * 2)()
+
+    def c_square(level: int, a: int) -> int:
+        """The C square, which `scalar.square` leaves to Python."""
+        native.get_lib().tower_square(scalar._level_of(a), a & ((1 << 64) - 1), a >> 64, out)
+        return out[0] | out[1] << 64
+
+    scalar.mul_py(7, 3 << 100, 5 << 90)       # the plain tables, built once
+    scalar.square_py(7, 3 << 100)
+    try:
+        for k in bounds:
+            setattr(scalar, k, 0)
+        for level in range(8):
+            mask = (1 << (1 << level)) - 1
+            xs = [0, 1] + [(int(x) | int(y) << 64) & mask for x, y in
+                           rng.integers(0, 1 << 64, (n_ops - 2, 2), dtype=np.uint64)]
+            ys = xs[::-1]
+            es = [int(e) for e in rng.integers(0, 1 << 63, n_ops // 10)] + [1 << 64, 3 << 70]
+            units = [x or 1 for x in xs]
+            ops = (("mul", lambda f: [f(level, x, y) for x, y in zip(xs, ys)],
+                    scalar.mul, scalar.mul_py, n_ops),
+                   ("square", lambda f: [f(level, x) for x in xs], c_square,
+                    scalar.square_py, n_ops),
+                   ("invert", lambda f: [f(level, x) for x in units], scalar.invert,
+                    scalar.invert_py, n_ops),
+                   ("pow", lambda f: [f(level, x, e) for x, e in zip(units, es)], scalar.pow,
+                    scalar.pow_py, len(es)))
+            line = []
+            for name, run, c_fn, p_fn, count in ops:
+                got = run(c_fn)
+                c_ms = statistics.median(timed(lambda: run(c_fn))[1] for _ in range(3))
+                want, p_ms = timed(lambda: run(p_fn))
+                if got != want:
+                    raise AssertionError(f"native {name} at level {level}: C != plain")
+                line.append(f"{name} {c_ms * 1e3 / count:.2f} / {p_ms * 1e3 / count:.2f}")
+            try:
+                scalar.invert(level, 0)
+            except ZeroDivisionError:
+                pass
+            else:
+                raise AssertionError(f"native invert(0) at level {level} did not raise")
+            log(f"native scalar level {level}: bit-equal to plain; us per op, C / plain: "
+                + ", ".join(line))
+    finally:
+        for k, v in bounds.items():
+            setattr(scalar, k, v)
+    log("native scalar dispatch: Python below " + ", ".join(
+        f"{k.removeprefix('PY_').removesuffix('_BELOW').lower()} 2^{v.bit_length() - 1}"
+        for k, v in bounds.items()) + ", square always, pow from 2^64 on")
+    # the univariate-skip zerocheck's domains: barycentric weights (the C
+    # entry uncached) and Lagrange evaluations at z off and on a domain point,
+    # over the d * 2^k points and over the 2^k cube (the torch scans warmed
+    # up first)
+    univariate.lagrange_evals_device(uzc._domain_points(4), 3, "cpu")
+    for d, k in NATIVE_DOMAINS:
+        points = uzc._domain_points(d << k)
+        held(f"barycentric weights ({d << k} points)",
+             lambda: tuple(pairs_to_ints(univariate._domain_pairs.__wrapped__(points)[1])),
+             lambda: univariate._barycentric_weights_py(points))
+        z = int(rng.integers(1 << 62)) << 66 | 5
+        for what, pts, zz in (("", points, z), (", z on a point", points, points[7]),
+                              (", the cube", points[:1 << k], z)):
+            held(f"lagrange evals ({len(pts)} points{what})",
+                 lambda: univariate.lagrange_evals_np(pts, zz),
+                 lambda: tower.to_ints(7, univariate.lagrange_evals_device(pts, zz, "cpu")))
+    # the evalcheck verifier's shift-indicator waves: the carry DP over C
+    # batches against the scalar DP of each claim in Python ints (every
+    # scalar bound above any element)
+    def in_python(fn):
+        def run():
+            saved = {k: getattr(scalar, k) for k in bounds}
+            try:
+                for k in bounds:
+                    setattr(scalar, k, 1 << 129)
+                return fn()
+            finally:
+                for k, v in saved.items():
+                    setattr(scalar, k, v)
+        return run
+
+    for n, b in NATIVE_SHIFT_WAVES:
+        variants = [(shift_ind.LOGICAL_LEFT, shift_ind.LOGICAL_RIGHT,
+                     shift_ind.CIRCULAR_LEFT)[i % 3] for i in range(n)]
+        offs = [int(o) for o in rng.integers(1, 1 << b, n)]
+        xs, ys = ([[int(x) | int(y) << 64 for x, y in
+                    rng.integers(0, 1 << 64, (b, 2), dtype=np.uint64)] for _ in range(n)]
+                  for _ in range(2))
+        held(f"shift-indicator wave ({n} claims, {b} bits)",
+             lambda: shift_ind.evaluate_scalar_batch(variants, [b] * n, offs, xs, ys),
+             in_python(lambda: [shift_ind.evaluate_scalar(v, b, o, x, y)
+                                for v, o, x, y in zip(variants, offs, xs, ys)]))
+
+
 class Phases:
     """Seconds of each phase of the script, printed as each one ends."""
 
@@ -1054,6 +1276,10 @@ def main() -> int:
             HBM_BYTES_PER_S / 1e12, rates["sms"], rates["max_sm_mhz"],
             rates["logic_per_clock_per_sm"], rates["gates_per_lop3"], rates["gates_per_s"] / 1e12))
     phases.done("card and build")
+
+    # 2b. the native host library on the card's host
+    native_phase(args.seed)
+    phases.done("native host library")
 
     inst = instance(args.log_rows, args.seed, dev)
     params, meta, packed = inst["params"], inst["meta"], inst["packed"]
@@ -1443,20 +1669,32 @@ def main() -> int:
     phases.done("commit")
 
     # 5. the opening: commit, ring switch, PIOP; counted, with
-    # the host's Grøstl compressions and the trees' leaf counts recorded
+    # the host's Merkle hashing (the torch compression and the native C
+    # batches of pairs and leaf rows) and the trees' leaf counts recorded
     host_compressions = [0]
     compress_pairs_t, tree_levels = groestl.compress_pairs_t, groestl_cuda.tree_levels
+    host_lib = groestl._native_lib()
+    host_batches = {name: getattr(host_lib, name)
+                    for name in ("groestl_compress_pairs", "groestl_digest_batch")}
     trees = []
 
-    def counted_compress(pairs):
-        host_compressions[0] += 1
-        return compress_pairs_t(pairs)
+    def counted(fn):
+        def call(*a):
+            host_compressions[0] += 1
+            return fn(*a)
+        return call
+
+    def count_host_hashing(on: bool) -> None:
+        groestl.compress_pairs_t = counted(compress_pairs_t) if on else compress_pairs_t
+        for name, fn in host_batches.items():
+            setattr(host_lib, name, counted(fn) if on else fn)
 
     def recorded_tree(cw_, log_coset_, blob_len_):
         trees.append(cw_.shape[0] >> log_coset_)
         return tree_levels(cw_, log_coset_, blob_len_)
 
-    groestl.compress_pairs_t, groestl_cuda.tree_levels = counted_compress, recorded_tree
+    count_host_hashing(True)
+    groestl_cuda.tree_levels = recorded_tree
     open_commitment(inst)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1466,7 +1704,8 @@ def main() -> int:
     proof = open_commitment(inst)
     torch.cuda.synchronize()
     counts = dict(cuda_lib.launches)
-    groestl.compress_pairs_t, groestl_cuda.tree_levels = compress_pairs_t, tree_levels
+    count_host_hashing(False)
+    groestl_cuda.tree_levels = tree_levels
     log(f"launches on the opening (its commit included): {counts}")
     k6_opening = sum(len(groestl_cuda.tree_launches(n)) for n in trees)
     log(f"trees on the opening (leaves): {trees}; K6 launches {k6_opening}; host Grøstl "
@@ -1999,7 +2238,7 @@ def main() -> int:
         built.clear()
         del params_c, message_c, cw_c
         host_compressions[0] = 0
-        groestl.compress_pairs_t = counted_compress
+        count_host_hashing(True)
         torch.cuda.reset_peak_memory_stats()
         grouped.clear()
         cuda_lib.reset_launches()
@@ -2017,7 +2256,7 @@ def main() -> int:
         splits = {"total": [(time.perf_counter() - t0) * 1e3], "verify": [],
                   **{k: [csp.last_phase_times[k] * 1e3] for k in names[1:-1]}}
         counts = dict(cuda_lib.launches)
-        groestl.compress_pairs_t = compress_pairs_t
+        count_host_hashing(False)
         log(f"launches on the {circuit} proof: {counts}; host Grøstl compressions "
             f"{host_compressions[0]}")
         need = [k for k in cuda_lib.KERNELS if k != "k4_ntt_cross"]
@@ -2092,8 +2331,7 @@ def main() -> int:
     for circuit in ("b32_mul", "keccak", "groestl", "u32_mul_gkr", "bitwise_ops",
                     "keccak_lookups", "sha256", "merkle_tree", "u32_sub", "u32_mul",
                     "barrel_shifter", "div_uu32"):
-        size = (SMOKE_SIZE.get(circuit) or circuits.GRID_SIZE.get(circuit)
-                or circuits.CARD_SIZE[circuit])
+        size = circuits.GRID_SIZE.get(circuit) or circuits.CARD_SIZE[circuit]
         proof_launches[circuit] = drive_proof(circuit, size)
         phases.done(f"proof {circuit}")
     proof_launches["vision_tree"] = counts_v

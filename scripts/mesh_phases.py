@@ -49,8 +49,7 @@ def main() -> int:
     grouped = chip_smoke.install_grouped_spy()
     for circuit in args.circuit:
         t0 = time.perf_counter()
-        size = (chip_smoke.SMOKE_SIZE.get(circuit) or circuits.GRID_SIZE.get(circuit)
-                or circuits.CARD_SIZE[circuit])
+        size = circuits.GRID_SIZE.get(circuit) or circuits.CARD_SIZE[circuit]
         core, witness, stmt = circuits.instance(circuit, size, args.seed, dev)
         proofs = {}
         for group in (True, False):

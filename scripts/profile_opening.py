@@ -276,13 +276,30 @@ def main() -> int:
     def host_functions(fn):
         """One more warm run under cProfile: the host seconds of the
         functions with the most own time, and of the transcript's Grøstl
-        (`hash.groestl._compress_cols`, with what it calls)."""
+        (`hash.groestl.Groestl256.update` and `finalize`, with what they
+        call), with the blocks they compress (counted around
+        `compress_seq_native` and `_digest_cols`)."""
         import cProfile
         import pstats
+
+        from binius_tpu_torch.hash import groestl
+        blocks = [0]
+
+        def counted(f):
+            def call(h, data):
+                blocks[0] += len(data) // 64
+                return f(h, data)
+            return call
+
+        seq, digest = groestl.compress_seq_native, groestl._digest_cols
+        groestl.compress_seq_native, groestl._digest_cols = counted(seq), counted(digest)
         pr = cProfile.Profile()
         t0 = time.perf_counter()
-        pr.runcall(fn)
-        torch.cuda.synchronize()
+        try:
+            pr.runcall(fn)
+            torch.cuda.synchronize()
+        finally:
+            groestl.compress_seq_native, groestl._digest_cols = seq, digest
         wall = time.perf_counter() - t0
         st = pstats.Stats(pr)
         rows_ = sorted(((v[2], v[3], v[1], f) for f, v in st.stats.items()), reverse=True)
@@ -291,9 +308,10 @@ def main() -> int:
         for own, cum, calls, (file, line, name) in rows_[:args.top]:
             print(f"  {own:8.4f} {cum:8.4f} {calls:8d}  {os.path.basename(file)}:{line}({name})")
         grs = [(v[3], v[1]) for (file, _, name), v in st.stats.items()
-               if name == "_compress_cols" and file.endswith("groestl.py")]
-        print(f"transcript Grøstl (_compress_cols): {sum(c for c, _ in grs):.4f} s in "
-              f"{sum(n for _, n in grs)} compressions")
+               if name in ("update", "finalize") and file.endswith("groestl.py")]
+        print(f"transcript Grøstl (Groestl256.update and finalize): "
+              f"{sum(c for c, _ in grs):.4f} s in {sum(n for _, n in grs)} calls, "
+              f"{blocks[0]} compressions")
 
     def families(kernels):
         """Device ms by op family, from the device kernels' names."""

@@ -1,7 +1,7 @@
 """The port stands alone: binius_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package, and the kernels build only when first launched;
-every module of the JAX package has its counterpart in the port but those
-that are TPU- or XLA-specific."""
+JAX nor the JAX package, and the kernels and the native host library build
+only when first called; every module of the JAX package has its counterpart
+in the port but those that are TPU- or XLA-specific."""
 
 import ast
 import pathlib
@@ -23,7 +23,8 @@ def test_no_jax_import(path):
 
 def test_package_imports_without_jax_or_nvcc():
     """Import every module in a fresh interpreter where importing jax or
-    binius_tpu fails; no module may reach for either, nor build a kernel."""
+    binius_tpu fails; no module may reach for either, nor build a kernel or
+    the native host library."""
     code = (
         "import sys, importlib, pkgutil\n"
         "class Block:\n"
@@ -34,10 +35,15 @@ def test_package_imports_without_jax_or_nvcc():
         "for m in [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'binius_tpu')]:\n"
         "    del sys.modules[m]\n"
         "import binius_tpu_torch\n"
+        "from binius_tpu_torch import native\n"
+        "builds = []\n"
+        "build = native.build\n"
+        "native.build = lambda: builds.append(1) or build()\n"
         "for info in pkgutil.walk_packages(binius_tpu_torch.__path__, 'binius_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
         "from binius_tpu_torch import cuda_lib\n"
         "assert cuda_lib._lib is None\n"
+        "assert native._lib is None and not builds, builds\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
@@ -49,11 +55,11 @@ def test_package_imports_without_jax_or_nvcc():
 # TPU- or XLA-specific: the Pallas kernels (their counterparts are
 # fields/bitslice_cuda.py for K1/K2 and hash/groestl_cuda.py for K5/K6),
 # the MXU bit-matrix multiply (fields/fastmul.py), the bitsliced XLA Grøstl
-# (K5, K6 and the torch byte-state permutation replace it), the ctypes
-# native paths and the persistent XLA compile cache
+# (K5, K6 and the torch byte-state permutation replace it) and the
+# persistent XLA compile cache
 NO_COUNTERPART = {
     "fields/bitslice_pallas.py", "hash/groestl_pallas.py", "fields/fastmul.py",
-    "hash/groestl_bitslice.py", "native/__init__.py", "utils/jax_cache.py",
+    "hash/groestl_bitslice.py", "utils/jax_cache.py",
 }
 
 
@@ -68,14 +74,12 @@ def test_every_reference_module_has_a_counterpart():
 # port's module of the same path, each TPU- or XLA-specific: JAX dtypes
 # (`U32`, `LIMB_BITS`), TPU dispatch switches (`NO_PALLAS`,
 # `wants_dispatch` and the TPU lane width `LANE`; the port's NTT gate is
-# `bitsliced_ntt.supported`), the ctypes native paths (`*_native`), the
-# XLA compile counters, and constants the JAX package defines and never
-# reads (`MAX_LEVEL`, `M32`)
+# `bitsliced_ntt.supported`), the XLA compile counters, and constants the
+# JAX package defines and never reads (`MAX_LEVEL`, `M32`)
 NAMES_WITHOUT_COUNTERPART = {
     "fields/bitslice.py": {"U32"},
     "fields/scalar.py": {"MAX_LEVEL"},
     "fields/tower.py": {"LIMB_BITS", "NO_PALLAS", "U32"},
-    "hash/groestl.py": {"compress_seq_native", "digest_rows_native"},
     "m3/gadgets/sha256.py": {"M32"},
     "ntt/bitsliced_ntt.py": {"LANE", "wants_dispatch"},
     "utils/tracing.py": {"compile_stats", "install_compile_counter"},
