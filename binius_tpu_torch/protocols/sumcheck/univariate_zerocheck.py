@@ -23,9 +23,18 @@ The transcript order is the JAX package's: the stage-2 eq challenges are
 sampled before the batching coefficients, and the univariate round's
 message is always obtained, even when it is empty, before `u_challenge`.
 Claims of a lower degree compute their round on their own smaller domain
-and are extended to the batch's with `OddInterpolate`. Device work is
-plain PyTorch; the suffixes are chunked only to bound the memory of one
-chunk (`_CHUNK_ELEMS`). Each stage of the prover is a
+and are extended to the batch's with `OddInterpolate`. The suffixes are
+chunked only to bound the memory of one chunk (`_CHUNK_ELEMS`). Stage 1's
+NTT takes the route the JAX package's `_uni_chunk_jit` takes: a chunk
+whose data is at B32 or above (a claim over B32 multilinears, or one with
+a B64 or B128 multilinear or constant, where the data is B128) and whose
+rows, padded with zero rows to a power of two m_pad, make a flat batch of
+m_pad * chunk * 2^k >= 2^15 elements is transformed as that one batch, shape
+(0, k, log2(m_pad * chunk)), by the bitsliced path (`bitsliced_ntt`: K2, K3
+and K4 where a plan has cross runs, on the card; B8 twiddles); every other
+chunk (B8 or B16 data, smaller batches) keeps the packed stage loop on its
+(m, chunk * 2^k) rows. The rest of the device work is plain PyTorch but
+K1's products. Each stage of the prover is a
 `torch.profiler.record_function` range, "zerocheck.stage<i>"; each ends
 with values read back to the host, and `last_stage_times` holds the last
 proof's wall seconds per stage.
@@ -57,6 +66,7 @@ from ...fields import scalar, tower
 from ...math import mle
 from ...math.arith import ArithExpr, CompositionPoly
 from ...math.univariate import lagrange_evals_device, lagrange_evals_np
+from ...ntt import bitsliced_ntt
 from ...ntt.additive_ntt import AdditiveNTT, NTTDomain
 from ...parallel import mesh as mesh_mod
 from . import prove as sc_prove
@@ -185,14 +195,20 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
     chunk = 1 << min(n - k, max(0, (_CHUNK_ELEMS // width).bit_length() - 1))
     if (chunk << k) % 32:
         mls = [tower.resolve_p1(lvl, d) for lvl, d in mls]
+    # the NTT's operand: one flat batch of m_pad rows (zero rows after the
+    # m multilinears) where the bitsliced transform takes it, else the m rows
+    m_pad = 1 << (m - 1).bit_length()
+    flat = bitsliced_ntt.supported(DOMAIN_LEVEL, data_level, (m_pad * chunk) << k)
+    n_rows = m_pad if flat else m
+    shape = (0, k, (m_pad * chunk).bit_length() - 1 if flat else 0)
     # the multilinears stacked once per level (bit-packed B1 ones as words)
     by_level = sc_prove.group_by_level(mls)
     stacks = [(lvl, torch.stack([mls[i][1] for i in idxs])) for lvl, idxs in by_level.items()]
-    order = [i for idxs in by_level.values() for i in idxs]
+    order = [i for idxs in by_level.values() for i in idxs] + list(range(m, n_rows))
 
     def rows(s0: int) -> torch.Tensor:
-        """The chunk's slice of every multilinear at data_level:
-        (m, chunk << k[, limbs])."""
+        """The chunk's slice of every multilinear at data_level, and the
+        zero rows: (n_rows, chunk << k[, limbs])."""
         out = []
         for lvl, st in stacks:
             if lvl == tower.P1:
@@ -201,6 +217,8 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
             else:
                 sl = st[:, s0 << k:(s0 + chunk) << k]
             out.append(tower.embed(lvl, data_level, sl))
+        if n_rows > m:
+            out.append(tower.zeros(data_level, (n_rows - m, chunk << k), device))
         return sc_prove.in_order(out, order)
 
     groups = sc_prove._group_comp_specs(_compact_compositions(zc))
@@ -209,9 +227,11 @@ def _claim_round_evals(zc: ZerocheckClaim, mls: list, eq_pt: list[int], k: int,
     acc = None
     for s0 in range(0, suffix, chunk):
         sub = rows(s0)
-        coeffs = ntt.inverse(sub, data_level, (0, k, 0), 0, coset_bits, device=device)
-        cosets = [ntt.forward(coeffs, data_level, (0, k, 0), c, coset_bits, device=device)
-                  .reshape(tower.elem_shape(data_level, (m, chunk, 1 << k)))
+        if flat:
+            sub = sub.reshape(tower.elem_shape(data_level, ((n_rows * chunk) << k,)))
+        coeffs = ntt.inverse(sub, data_level, shape, 0, coset_bits, device=device)
+        cosets = [ntt.forward(coeffs, data_level, shape, c, coset_bits, device=device)
+                  .reshape(tower.elem_shape(data_level, (n_rows, chunk, 1 << k)))[:m]
                   for c in range(1, n_cosets)]
         ext = torch.cat(cosets, dim=2)                     # (m, chunk, P[, limbs])
         vals = sc_prove.evaluate_grouped(data_level, groups, ext)   # (n_comps, chunk, P[, limbs])

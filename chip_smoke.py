@@ -93,7 +93,13 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    and a B8 transform of the zerocheck's shape (k = 7 stages over 5 rows)
    take the packed stage loop on the card, no K2-K4 launch, and equal it
    on the CPU; the smallest batch the bitsliced gate admits (2^15
-   elements) takes K2/K3/K4 and equals the stage loop on the card.
+   elements) takes K2/K3/K4 and equals the stage loop on the card. Stage
+   1 of the zerocheck routes as the JAX package does (fault C7): a chunk
+   with B32 or wider data (b32_mul's B32, u32_mul_gkr's and div_uu32's
+   B128) whose rows, padded to a power of two, hold at least 2^15 elements
+   is one flat batch through K2 and K3 at B8 twiddles; B8 and B16 data
+   (u32_add, keccak, sha256 and the other proofs) and smaller batches keep
+   the stage loop.
 6b. K3 and K4 at every twiddle level (fault C5; `level_checks`): at each
    (data level, twiddle level) of `LEVEL_PAIRS` (B8 and B16 twiddles on
    B8 to B128 data, and B1 to B4 twiddles on B32), forward and inverse at
@@ -103,7 +109,13 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    each transform bit-equal to the stages' plain version on the card;
    `AdditiveNTT` over a B8 domain on 2^20 B32 elements, shape (12, 8, 0),
    the call that raised before, equal to the stage loop, and K4 and K3
-   timed at its plan with their bounds.
+   timed at its plan with their bounds. Then the zerocheck's stage-1
+   shapes (fault C7, `STAGE1_SHAPES`): (0, 7, log_z) at (5, 3) and (7, 3)
+   as b32_mul, u32_mul_gkr and div_uu32 give them at 2^20, and (0, 3, 12)
+   on B128 (k < 5: blocks below a word), the inverse on coset 0 and the
+   forward on each other coset, each bit-equal to the plain stages with
+   its K3 launch asserted; K3 timed at b32_mul's and div_uu32's shapes
+   with its bound and x bound.
 7. The proofs (the main path), each through `constraint_system.prove.prove`
    on the card with its inputs drawn from --seed
    (`binius_tpu_torch.circuits.instance`): the u32_add constraint system
@@ -130,9 +142,13 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    the same bytes, digest and symbolic system; the
    system's size and the commit's NTT plan; the first run's time with its
    phase split; one run with every launch counter set to 0 just before
-   and read just after (K1, K2, K3, K5 and K6 each launched, K4 once per
-   run of the plan's cross stages; no host Grøstl compression), its
-   length, sha256, peak device memory and bytes per phase
+   and read just after (K1, K2, K3, K5 and K6 each launched; K2 twice
+   and K3 once per bitsliced transform, K4 once per run of a plan's cross
+   stages: the commit's, and stage 1's where it routes, which b32_mul,
+   u32_mul_gkr and div_uu32 must do at the shapes of `STAGE1_SHAPES`, and
+   no other proof; no host Grøstl compression), its
+   length, sha256 (against `CARD_PROOFS` where pinned), peak device
+   memory and bytes per phase
    (`last_phase_sizes`, summing to its length but for the table sizes'
    message); for a system with exponents (u32_mul_gkr, div_uu32), every
    exponent's layer witnesses at the proof's size computed through K1
@@ -147,7 +163,10 @@ proofs across two ranks of a mesh, byte-equal to one device's.
    the counted run and two more) with its phase split (commit, exp, gpa, zerocheck, evalcheck, ring
    switch, PIOP), the bytes equal across the runs, and the verify time
    (median of 3: the accepting verify, and two against the system
-   deserialized from its BTPUCS03 bytes). Every proof runs with stage 2's
+   deserialized from its BTPUCS03 bytes); for the three proofs whose
+   stage 1 routes, two more runs with stage 1 on the stage loop (before
+   and after the warm runs): the same bytes, and both routes' stage-1 and
+   zerocheck times. Every proof runs with stage 2's
    same-structure zerocheck claims grouped (`group_claims`, on for CUDA by
    default); each counted run prints its grouped provers and their claims
    and stage 2's wall ms. For keccak and merkle_tree the proof's zerocheck
@@ -233,6 +252,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -371,6 +391,35 @@ GOLDEN_RATES = {
 # the card-size proofs at those rates: u32_add at --log-rows, sha256 at its
 # `circuits.CARD_SIZE`
 RATE_PROOFS = (("u32_add", 2), ("u32_add", 3), ("sha256", 2))
+# the card-size proofs' length and sha256 at seed 0, as section 7 proved
+# them with every stage-1 NTT on the stage loop (NVIDIA H100 80GB HBM3, the
+# tree of commit 7448a47): the routed stage 1 keeps these bytes
+CARD_PROOFS = {
+    ("u32_add", 22): (413072, "9045159bcd0b3bb39315c100a2076d9e4e73a62d3ac25195bb295e620141a1e0"),
+    ("b32_mul", 20): (337456, "14f6ad14c4e2c08997f14235fbacbeb398202095862c53e751194bc54465196e"),
+    ("keccak", 13): (602208, "ab3913d536f8cb1672911dad8097d2e77c6c1bdfeb71c331ef87974a6139a4c0"),
+    ("groestl", 14): (424848, "189e5027ab1911e823a28f128ce815e633e93c4cda5d8274378f91a530562bfc"),
+    ("u32_mul_gkr", 20): (541056,
+                          "152a15bff6d5b6859db620e4313d52b0161ef1e5dbbf2ae8cf95aa032edd3f87"),
+    ("bitwise_ops", 22): (475232,
+                          "7ff22f846b9c00e9e335538ee0e68a45adb7075446cdece51554da81633afb55"),
+    ("keccak_lookups", 13): (1008792,
+                             "13b067d2bc4b57b22b242d12d5d3bf9edba355261683d5f4bd37b768ca5d0a51"),
+    ("sha256", 14): (691696, "986313c33f905e42df79ab0de318fc597d96566d16d4324944b6a90be040661e"),
+    ("merkle_tree", 20): (696544,
+                          "869e721b40df5ba6fc4d5a1c87a729958fbc1ed55a4d0d5c91f0b3bcb1fe154d"),
+    ("u32_sub", 22): (413072, "9bf1483b2c3af1bcb3cafafa7c903cfe091ff89abccd4ce51ebe2aaf2236238e"),
+    ("u32_mul", 20): (570192, "77ff57224f12877f65c113638a96d7452e2042405091fdd49349375b3e303633"),
+    ("barrel_shifter", 20): (482176,
+                             "c55ea32e165020e3d731b0c2d96c645595eb5c23c66ca3fe7dbee7eb2cbcc558"),
+    ("div_uu32", 20): (650448, "c0f823966be3a4c8449f5117fade9dc779fb1ad6124859710af5d4dee823d0bb"),
+    ("u32_add rate 2", 22): (310800,
+                             "8522c73a51aa5a0d8aaf68854622b72abafa6f9e01f77c5b1e367dc6dd055cd5"),
+    ("u32_add rate 3", 22): (281104,
+                             "e615be67c6579dbed9897e6379e3f46125a9de5bee568605b8b67c31a3563acd"),
+    ("sha256 rate 2", 14): (548080,
+                            "6e627821ca390d61840ee87e654a4262d4dc7b355ddff7757908474d9839b49e"),
+}
 # the example command lines (`binius_tpu_torch.examples`) and the metric
 # lines each prints after its first, in the JAX example's order
 EXAMPLE_LINES = {
@@ -401,6 +450,21 @@ LEVEL_SHAPES = {
     2: (((0, 3, 14), 1, 1), ((13, 4, 0), 0, 1)),
     3: (((2, 7, 8), 1, 1), ((10, 7, 0), 1, 1), ((9, 8, 0), 0, 0)),
     4: (((1, 16, 0), 0, 1), ((1, 15, 1), 1, 0)),
+}
+# fault C7's phase: the zerocheck's stage-1 transforms, (data level, shape,
+# dom_log, n_cosets) over B8 twiddles: the inverse on coset 0 and the
+# forward on cosets 1..n_cosets-1 of a 2^dom_log domain, coset_bits =
+# dom_log - k. The circuits' entries are their proofs' own at 2^20 (degree
+# 2, k = 7): b32_mul's 3 B32 multilinears padded to 4 rows, one chunk of
+# 2^13 suffixes; u32_mul_gkr's 6 B1 and B64 ones (B128 data) padded to 8,
+# one chunk; div_uu32's 421 padded to 512, 32 chunks of 256 suffixes. The
+# last is a degree-3 claim at k = 3 on B128, blocks below a word (fault
+# C6's region), which no proof reaches
+STAGE1_SHAPES = {
+    "b32_mul": (5, (0, 7, 15), 8, 2),
+    "u32_mul_gkr": (7, (0, 7, 16), 8, 2),
+    "div_uu32": (7, (0, 7, 17), 8, 2),
+    "k = 3": (7, (0, 3, 12), 5, 3),
 }
 # section 8's proofs through the plain versions on the CPU: worker
 # processes and the torch threads of each (the card's host has 8 cores)
@@ -659,8 +723,9 @@ def level_checks(dev, gen) -> int:
     each of LEVEL_PAIRS on random planes from `gen`, at LEVEL_SHAPES,
     forward and inverse, each launch count asserted (K3 once where the plan
     has local stages, K4 once per cross run; K4 at least once per pair) and
-    each result bit-equal to the stages' plain version on the card.
-    Returns the number of transforms checked."""
+    each result bit-equal to the stages' plain version on the card; then
+    fault C7's: each of STAGE1_SHAPES on its cosets the same way. Returns
+    the number of transforms checked."""
     from binius_tpu_torch import cuda_lib
     from binius_tpu_torch.fields import bitslice_cuda, tower
     from binius_tpu_torch.ntt import additive_ntt
@@ -705,6 +770,35 @@ def level_checks(dev, gen) -> int:
                     f"{p_l.n_local} in K3, cross runs {runs_l}; bit-equal to the plain version")
         if not k4_runs:
             raise AssertionError(f"C5 dl {dl} tl {tl}: K4 never launched")
+    # the zerocheck's stage-1 transforms (fault C7), through the same check
+    for name, (dl, shape, dom_log, n_cosets) in STAGE1_SHAPES.items():
+        coset_bits = dom_log - shape[1]
+        dom_l = additive_ntt.NTTDomain.create(3, dom_log)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, tower.elem_shape(dl, (1 << sum(shape),)),
+                          dtype=torch.int32, device=dev, generator=gen)
+        planes_l = bitslice_cuda.to_bitsliced(dl, x)
+        for coset in range(n_cosets):
+            p_l, tw_np_l = bn._make_plan(dom_l, dl, shape, coset, coset_bits, 0, coset == 0)
+            tw_l = bn._dev_tw(p_l, tw_np_l, dev)
+            runs_l = bn._cross_runs(p_l)
+            cuda_lib.reset_launches()
+            got = bn.transform_planes(dom_l, planes_l, dl, shape, coset, coset_bits, 0,
+                                      coset == 0)
+            torch.cuda.synchronize()
+            want = {**dict.fromkeys(cuda_lib.KERNELS, 0), "k3_ntt_local": 1,
+                    "k4_ntt_cross": len(runs_l)}
+            if dict(cuda_lib.launches) != want:
+                raise AssertionError(f"C7 {name} {shape} coset {coset}: launches "
+                                     f"{cuda_lib.launches}, want {want}")
+            if not torch.equal(got, plain_planes(p_l, tw_l, planes_l.clone())):
+                raise AssertionError(f"C7 {name} dl {dl} {shape} coset {coset}: kernels != "
+                                     f"plain version")
+            n_level_cases += 1
+            log(f"C7: stage 1 of {name}, dl {dl}, tl 3, shape {shape}, coset {coset}/"
+                f"{coset_bits} {'inverse' if coset == 0 else 'forward'}: {len(p_l.stages)} "
+                f"stages, {p_l.n_local} in K3, cross runs {runs_l}; bit-equal to the plain "
+                f"version")
+        del x, planes_l, got
     return n_level_cases
 
 
@@ -1318,7 +1412,7 @@ def main() -> int:
                              bound_ms=b, bound_by=by, library_ms=None))
         plain_txt = f"plain {plain:.3f} ms, " if isinstance(plain, float) else ""
         log(f"{name}{' ' + label if label else ''}: bit-equal to plain; {ms:.4f} ms "
-            f"({plain_txt}bound {b:.4f} ms by {by})")
+            f"({plain_txt}bound {b:.4f} ms by {by}{f', {ms / b:.2f}x bound' if b else ''})")
 
     # 3. kernel phases at the main path's shapes
     # K1: the packed product at 2^22 elements (the transparents' eq scaling
@@ -2055,6 +2149,22 @@ def main() -> int:
            label=f"B8 twiddles on B32 data, shape (12, 8, 0), {n_b8} stages in runs {runs_b8}")
     check_local(p_b8, tw_b8, after_b8, "B8 twiddles on B32 data, shape (12, 8, 0)")
     del x, got, planes_b8, after_b8
+    # K3 at b32_mul's and div_uu32's stage-1 shapes (fault C7), the inverse
+    # and the forward: every stage of the plan is local, so one K3 launch is
+    # the whole transform
+    for name in ("b32_mul", "div_uu32"):
+        dl, shape, dom_log, n_cosets = STAGE1_SHAPES[name]
+        dom_s = additive_ntt.NTTDomain.create(3, dom_log)
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, tower.elem_shape(dl, (1 << sum(shape),)),
+                          dtype=torch.int32, device=dev, generator=gen)
+        planes_s = bitslice_cuda.to_bitsliced(dl, x)
+        for coset in (0, 1):
+            p_s, tw_np_s = bn._make_plan(dom_s, dl, shape, coset, dom_log - shape[1], 0,
+                                         coset == 0)
+            check_local(p_s, bn._dev_tw(p_s, tw_np_s, dev), planes_s,
+                        f"stage 1 of {name} 2^20, dl {dl}, B8 twiddles, shape {shape}, "
+                        f"{'inverse, coset 0' if coset == 0 else 'forward, coset 1'}")
+        del x, planes_s
     phases.done("C5 twiddle levels")
 
     # 7. the proofs, the main path: the u32_add constraint system, then the
@@ -2066,6 +2176,16 @@ def main() -> int:
     from binius_tpu_torch.utils import tracing
 
     grouped = install_grouped_spy()   # the grouped provers' claims, per proof
+    # the bitsliced transforms of a counted run, (plan, shape) each
+    transforms = []
+    bn_transform = bn.transform
+
+    def recording_transform(domain, data, data_level, shape, coset=0, coset_bits=0,
+                            skip_rounds=0, inverse=False):
+        transforms.append((bn._make_plan(domain, data_level, shape, coset, coset_bits,
+                                         skip_rounds, inverse)[0], tuple(shape)))
+        return bn_transform(domain, data, data_level, shape, coset, coset_bits, skip_rounds,
+                            inverse)
 
     def commit_plan(core, rate):
         """(K4 launches the commit's NTT makes, the plan's description)."""
@@ -2241,11 +2361,16 @@ def main() -> int:
         count_host_hashing(True)
         torch.cuda.reset_peak_memory_stats()
         grouped.clear()
+        transforms.clear()
+        bn.transform = recording_transform
         cuda_lib.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = csp.prove(core, witness, log_inv_rate=rate, **stmt)
-        torch.cuda.synchronize()
+        try:
+            proof = csp.prove(core, witness, log_inv_rate=rate, **stmt)
+            torch.cuda.synchronize()
+        finally:
+            bn.transform = bn_transform
         log(f"proof {circuit} stage 2 (grouping on, the CUDA default): {len(grouped)} grouped "
             f"provers holding {sum(grouped)} claims {list(grouped)}; stage 2 wall "
             f"{uzc.last_stage_times.get('stage2', 0.0) * 1e3:.3f} ms")
@@ -2256,6 +2381,7 @@ def main() -> int:
         splits = {"total": [(time.perf_counter() - t0) * 1e3], "verify": [],
                   **{k: [csp.last_phase_times[k] * 1e3] for k in names[1:-1]}}
         counts = dict(cuda_lib.launches)
+        stage1_ms = uzc.last_stage_times.get("stage1", 0.0) * 1e3
         count_host_hashing(False)
         log(f"launches on the {circuit} proof: {counts}; host Grøstl compressions "
             f"{host_compressions[0]}")
@@ -2263,16 +2389,45 @@ def main() -> int:
         missing = [k for k in need if counts[k] == 0]
         if missing:
             raise AssertionError(f"{circuit}: kernels not launched on the proof: {missing}")
-        if counts["k4_ntt_cross"] != k4_want:
-            raise AssertionError(f"{circuit}: K4 launched {counts['k4_ntt_cross']} times, the "
-                                 f"commit plan has {k4_want} cross runs")
+        # the bitsliced transforms: the commit's (its plan's cross runs in
+        # K4) and stage 1's (log_z > 0), K2 twice and K3 once each
+        stage1 = [sh for _, sh in transforms if sh[2] > 0]
+        if len(transforms) - len(stage1) != 1:
+            raise AssertionError(f"{circuit}: {len(transforms) - len(stage1)} commit transforms")
+        k4_stage1 = sum(len(bn._cross_runs(p_)) for p_, sh in transforms if sh[2] > 0)
+        want_ntt = {"k2_transpose32": 2 * len(transforms),
+                    "k3_ntt_local": sum(p_.n_local > 0 for p_, _ in transforms),
+                    "k4_ntt_cross": k4_want + k4_stage1}
+        if any(counts[k] != v for k, v in want_ntt.items()):
+            raise AssertionError(f"{circuit}: NTT launches {counts}, want {want_ntt} (the "
+                                 f"commit's plan has {k4_want} cross runs; stage 1's "
+                                 f"transforms {stage1})")
+        base = circuit.split()[0]
+        if base in STAGE1_SHAPES:
+            want_s1 = STAGE1_SHAPES[base][1]
+            if (counts["k3_ntt_local"] <= 1 or counts["k2_transpose32"] <= 2
+                    or (size == 20 and set(stage1) != {want_s1})):
+                raise AssertionError(f"{circuit}: stage 1 did not take K2/K3 at {want_s1}: "
+                                     f"transforms {stage1}, launches {counts}")
+        elif stage1 or counts["k3_ntt_local"] != 1:
+            raise AssertionError(f"{circuit}: B8 stage-1 data took the bitsliced route "
+                                 f"({stage1}, launches {counts})")
+        log(f"proof {circuit} stage 1: {len(stage1)} transforms through K2/K3 "
+            f"{sorted(set(stage1))} ({k4_stage1} K4 runs)" if stage1 else
+            f"proof {circuit} stage 1: the stage loop (B8 data)")
         if counts["k5_groestl_leaf"] != len(leaves) or counts["k6_groestl_pairs"] != k6_want:
             raise AssertionError(f"{circuit}: K5 launched {counts['k5_groestl_leaf']} times for "
                                  f"{len(leaves)} trees, K6 {counts['k6_groestl_pairs']} for "
                                  f"{k6_want}")
         if host_compressions[0]:
             raise AssertionError(f"the prover compressed {host_compressions[0]} times on the host")
-        log(f"proof {circuit}: {len(proof)} bytes, sha256 {hashlib.sha256(proof).hexdigest()}, "
+        sha = hashlib.sha256(proof).hexdigest()
+        pinned = CARD_PROOFS.get((circuit, size)) if args.seed == 0 else None
+        if pinned and (len(proof), sha) != pinned:
+            raise AssertionError(f"{circuit}: {len(proof)} bytes, sha256 {sha}; the stage "
+                                 f"loop's proof has {pinned}")
+        log(f"proof {circuit}: {len(proof)} bytes, sha256 {sha}"
+            f"{' (= CARD_PROOFS)' if pinned else ''}, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         # the bytes per phase, from the commit on (the table sizes' message
         # is in none)
@@ -2298,6 +2453,28 @@ def main() -> int:
             log(f"proof {circuit} with byte {len(bad) // 3} flipped: rejected ({e})")
         else:
             raise AssertionError(f"{circuit}: a proof with a flipped byte was accepted")
+        routes = {"routed": [(stage1_ms, splits["zerocheck"][0])],
+                  "stage loop": []}
+
+        def loop_run():
+            """One proof with stage 1 on the stage loop: its bytes equal the
+            counted run's; its stage-1 and zerocheck ms recorded."""
+            gate = uzc.bitsliced_ntt
+            uzc.bitsliced_ntt = types.SimpleNamespace(supported=lambda *a: False)
+            try:
+                torch.cuda.synchronize()
+                again = csp.prove(core, witness, log_inv_rate=rate, **stmt)
+                torch.cuda.synchronize()
+            finally:
+                uzc.bitsliced_ntt = gate
+            if again != proof:
+                raise AssertionError(f"{circuit}: stage 1 on the stage loop changed the bytes")
+            routes["stage loop"].append((uzc.last_stage_times["stage1"] * 1e3,
+                                         csp.last_phase_times["zerocheck"] * 1e3))
+
+        compare = warm and stage1
+        if compare:
+            loop_run()
         for _ in range(warm):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2306,6 +2483,8 @@ def main() -> int:
             t1 = time.perf_counter()
             if again != proof:
                 raise AssertionError(f"{circuit}: proof bytes differ between runs")
+            routes["routed"].append((uzc.last_stage_times["stage1"] * 1e3,
+                                     csp.last_phase_times["zerocheck"] * 1e3))
             for k in names[1:-1]:
                 splits[k].append(csp.last_phase_times[k] * 1e3)
             splits["total"].append((t1 - t0) * 1e3)
@@ -2318,6 +2497,14 @@ def main() -> int:
             "system): %s" % (
                 circuit, size, warm + 1, warm, warm,
                 ", ".join(f"{k} {v:.3f}" for k, v in split.items())))
+        if compare:
+            loop_run()
+            log(f"proof {circuit} 2^{size} stage 1, routed (K2/K3; the counted run and "
+                f"{warm} more) against the stage loop (one run before them, one after; the "
+                f"same bytes), ms, median: " + "; ".join(
+                    f"{route} stage 1 {statistics.median(t[0] for t in ts):.3f}, zerocheck "
+                    f"{statistics.median(t[1] for t in ts):.3f} (runs "
+                    f"{[round(t[0], 1) for t in ts]})" for route, ts in routes.items()))
         if circuit in ("keccak", "merkle_tree"):
             stage2_regimes(f"{circuit} 2^{size}", core, witness, grouped)
         return counts
