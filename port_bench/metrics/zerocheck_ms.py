@@ -1,0 +1,8 @@
+"""zerocheck_ms: `constraint_system.prove.last_phase_times["zerocheck"]` after each
+proof of the window (the phase's wall time, ending in a synchronize); mean
+per proof."""
+
+
+def read(run):
+    vals = [j.phases["zerocheck"] for j in run.jobs if j.error is None and "zerocheck" in j.phases]
+    return sum(vals) / len(vals) * 1e3 if vals else None
