@@ -26,14 +26,17 @@ rank of a mesh (`prove(..., mesh=)`, see its docstring):
 
 The boundaries are observed after the digest, and the table sizes, where
 given, are the proof's first message. `last_phase_times` holds the last
-proof's seconds per phase and `last_phase_sizes` its bytes per phase
-(from the commit on: the table sizes' message is in none).
+proof's seconds per phase, its "total", and the seconds of every span of
+`utils.tracing` closed since the proof before, under its path ("frontend/
+compile", "evalcheck/walk", "zerocheck/stage2/sumcheck.round"); keys
+without "/" are the phases and "total". `last_phase_sizes` holds its bytes
+per phase (from the commit on: the table sizes' message is in none).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import os
 import time
 
 import torch
@@ -58,61 +61,38 @@ SECURITY_BITS = 100
 last_phase_times: dict = {}
 last_phase_sizes: dict = {}
 
-_TRACE_PHASES = os.environ.get("BINIUS_TRACE_PHASES", "") not in ("", "0")
-
-
 class _PhaseTimer:
-    """Wall seconds and proof bytes per phase; on a CUDA device each phase
-    ends with a synchronize, so a phase's time holds its device work. Each
-    phase is also a `torch.profiler.record_function` range,
-    "prove.<phase>", that a profiler of the proof sees
-    (`scripts/profile_opening.py --proof`), and a span "prove.<phase>" of
-    `utils.tracing` (printed under BINIUS_TRACE_PHASES=1, written to the
-    trace under BINIUS_TRACE_FILE). A phase's bytes are what it wrote to
-    the transcript's tape. A phase entered twice (exp: its witnesses
-    before the commit, its GKR walk after) sums both spans."""
+    """Proof bytes per phase, and each phase a root span of `utils.tracing`
+    (its seconds in `last_phase_times`, its profiler range "prove.<phase>",
+    which `scripts/profile_opening.py --proof` and the benchmark's device
+    trace see); on a CUDA device each phase ends with a synchronize inside
+    its span, so a phase's time holds its device work. A phase's bytes are
+    what it wrote to the transcript's tape. A phase entered twice (exp: its
+    witnesses before the commit, its GKR walk after) sums both."""
 
     def __init__(self, device: torch.device, transcript: ProverTranscript):
         self.device = device
         self.transcript = transcript
-        self.times: dict = {}
         self.sizes: dict = {}
         self._t0 = time.perf_counter()
-        self._cur = None
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        mark = len(self.transcript._tape)
+        with tracing.span(name, range=f"prove.{name}", root=True):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.sizes[name] = self.sizes.get(name, 0) + len(self.transcript._tape) - mark
 
-    def phase(self, name: str) -> None:
-        self._finish()
-        rf = torch.profiler.record_function(f"prove.{name}")
-        rf.__enter__()
-        self._cur = (name, time.perf_counter(), rf, len(self.transcript._tape))
-
-    def _finish(self) -> None:
-        if self._cur is not None:
-            self._sync()
-            name, t0, rf, mark = self._cur
-            dt = time.perf_counter() - t0
-            rf.__exit__(None, None, None)
-            nb = len(self.transcript._tape) - mark
-            self.times[name] = self.times.get(name, 0.0) + dt
-            self.sizes[name] = self.sizes.get(name, 0) + nb
-            tracing.record(f"prove.{name}", t0, dt)
-            if _TRACE_PHASES:
-                print(f"[prove] phase {name}: {dt * 1e3:.1f} ms, {nb} proof bytes", flush=True)
-            self._cur = None
-
-    def done(self) -> dict:
-        self._finish()
-        self.times["total"] = time.perf_counter() - self._t0
-        if _TRACE_PHASES:
-            print(f"[prove] total: {self.times['total'] * 1e3:.1f} ms", flush=True)
-        for last, now in ((last_phase_times, self.times), (last_phase_sizes, self.sizes)):
+    def done(self) -> None:
+        """Publish the spans closed since the last proof, this proof's
+        phases among them, and the total, as `last_phase_times`."""
+        times = tracing.publish()
+        times["total"] = time.perf_counter() - self._t0
+        for last, now in ((last_phase_times, times), (last_phase_sizes, self.sizes)):
             last.clear()
             last.update(now)
-        return self.times
 
 
 @dataclasses.dataclass
@@ -362,7 +342,20 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
     and Merkle leaves and subtrees, and the zerocheck (stage 1, the
     skipped fold, stage 2 until log2 N variables are left, stage 3's
     projection). The other phases read the columns gathered once
-    (`mesh.pull_local`) and run whole on every rank."""
+    (`mesh.pull_local`) and run whole on every rank.
+
+    A proof that raises publishes nothing: `utils.tracing.discard()` throws
+    away its spans and counts, its front end's too."""
+    try:
+        return _prove(system, witness, boundaries, log_inv_rate, table_sizes, device, mesh,
+                      group_claims, min_shard_elems)
+    except BaseException:
+        tracing.discard()
+        raise
+
+
+def _prove(system, witness, boundaries, log_inv_rate, table_sizes, device, mesh,
+           group_claims, min_shard_elems) -> bytes:
     dev = mesh.device if mesh is not None else resolve(device)
     transcript = ProverTranscript()
     timer = _PhaseTimer(dev, transcript)
@@ -382,59 +375,60 @@ def prove(system: ConstraintSystem, witness: dict, boundaries: list = (),
         # the gathered columns that the phases run whole on every rank read
         witness = {oid: (lvl, mesh_mod.pull_local(d)) for oid, (lvl, d) in placed.items()}
 
-    timer.phase("exp")   # the layer witnesses and result columns, which the commit needs
-    exp_witnesses = exp_mod.make_exp_witnesses(system, witness)
-    timer.phase("commit")
-    layout = CommitLayout.from_system(system)
-    fri_params = make_fri_params(layout.commit_meta, log_inv_rate)
-    packed_mles = []
-    for oid, packed_vars in zip(layout.oracle_ids, layout.packed_n_vars):
-        o = system.oracles[oid]
-        level, data = witness[oid]
-        if level == tower.P1:
-            # bit-packed B1 words are the B128 limb layout: packing is a view
-            packed, pv = data.reshape(-1, tower.n_limbs(LEVEL)), o.n_vars - 7
+    with timer.phase("exp"):   # the layer witnesses and result columns, which the commit needs
+        exp_witnesses = exp_mod.make_exp_witnesses(system, witness)
+    with timer.phase("commit"):
+        layout = CommitLayout.from_system(system)
+        fri_params = make_fri_params(layout.commit_meta, log_inv_rate)
+        packed_mles = []
+        for oid, packed_vars in zip(layout.oracle_ids, layout.packed_n_vars):
+            o = system.oracles[oid]
+            level, data = witness[oid]
+            if level == tower.P1:
+                # bit-packed B1 words are the B128 limb layout: packing is a view
+                packed, pv = data.reshape(-1, tower.n_limbs(LEVEL)), o.n_vars - 7
+            else:
+                assert level == o.tower_level
+                packed, pv = piop.pack_multilinear(level, data, o.n_vars)
+            assert pv == packed_vars
+            packed_mles.append((packed, pv))
+        codeword, tree, _ = piop.commit(fri_params, layout.commit_meta, packed_mles, dev,
+                                        mesh if mesh is not None and mesh.size > 1 else None)
+        transcript.message().write_bytes(tree.root)
+
+    with timer.phase("exp"):
+        ec_exp = exp_mod.prove_phase(system, witness, exp_witnesses, transcript)
+
+    with timer.phase("gpa"):
+        ec_gpa = _gpa_prove(system, witness, boundaries, transcript)
+
+    with timer.phase("zerocheck"):
+        with tracing.span("claims"):
+            skip = _zerocheck_skip(system)
+            sets, claims = _zerocheck_claims(system, ascending=skip > 0)
+        if skip > 0:
+            out = uzc.batch_prove(claims, [[placed[oid] for oid in s.oracle_ids] for s in sets],
+                                  transcript, skip, group_claims=group_claims)
+            ec_claims = _skip_evalcheck_claims(sets, out)
         else:
-            assert level == o.tower_level
-            packed, pv = piop.pack_multilinear(level, data, o.n_vars)
-        assert pv == packed_vars
-        packed_mles.append((packed, pv))
-    codeword, tree, _ = piop.commit(fri_params, layout.commit_meta, packed_mles, dev,
-                                    mesh if mesh is not None and mesh.size > 1 else None)
-    transcript.message().write_bytes(tree.root)
+            out = zc.batch_prove(claims, [[tower.resolve_p1(*witness[oid])
+                                           for oid in s.oracle_ids] for s in sets],
+                                 transcript, order_high=False)
+            ec_claims = _to_evalcheck_claims(sets, out, False)
+        ec_claims += ec_gpa + ec_exp
 
-    timer.phase("exp")
-    ec_exp = exp_mod.prove_phase(system, witness, exp_witnesses, transcript)
+    with timer.phase("evalcheck"):
+        committed_claims = evalcheck.prove(system.oracles, witness, ec_claims, transcript)
 
-    timer.phase("gpa")
-    ec_gpa = _gpa_prove(system, witness, boundaries, transcript)
+    with timer.phase("ring_switch"):
+        rs_claims = _ring_switch_claims(system, layout, committed_claims)
+        reduced = ring_switch.prove(rs_claims, [witness[oid] for oid in layout.oracle_ids],
+                                    transcript, dev)
 
-    timer.phase("zerocheck")
-    skip = _zerocheck_skip(system)
-    if skip > 0:
-        sets, claims = _zerocheck_claims(system, ascending=True)
-        out = uzc.batch_prove(claims, [[placed[oid] for oid in s.oracle_ids] for s in sets],
-                              transcript, skip, group_claims=group_claims)
-        ec_claims = _skip_evalcheck_claims(sets, out)
-    else:
-        sets, claims = _zerocheck_claims(system)
-        out = zc.batch_prove(claims, [[tower.resolve_p1(*witness[oid]) for oid in s.oracle_ids]
-                                      for s in sets], transcript, order_high=False)
-        ec_claims = _to_evalcheck_claims(sets, out, False)
-    ec_claims += ec_gpa + ec_exp
-
-    timer.phase("evalcheck")
-    committed_claims = evalcheck.prove(system.oracles, witness, ec_claims, transcript)
-
-    timer.phase("ring_switch")
-    rs_claims = _ring_switch_claims(system, layout, committed_claims)
-    reduced = ring_switch.prove(rs_claims, [witness[oid] for oid in layout.oracle_ids],
-                                transcript, dev)
-
-    timer.phase("piop")
-    piop.prove(fri_params, layout.commit_meta, codeword, tree, packed_mles,
-               reduced.transparent_mles, reduced.sumcheck_claims, transcript, dev)
-    proof = transcript.finalize()
+    with timer.phase("piop"):
+        piop.prove(fri_params, layout.commit_meta, codeword, tree, packed_mles,
+                   reduced.transparent_mles, reduced.sumcheck_claims, transcript, dev)
+        proof = transcript.finalize()
     timer.done()
     return proof
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .device import resolve
+from .utils import tracing
 
 
 def from_reference(arr: np.ndarray, device=None) -> torch.Tensor:
@@ -32,6 +33,7 @@ def to_reference(t: torch.Tensor) -> np.ndarray:
     """int32 tensor -> uint32 numpy array with identical bits."""
     if t.dtype != torch.int32:
         raise TypeError(f"expected torch.int32, got {t.dtype}")
+    tracing.count("readbacks")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 

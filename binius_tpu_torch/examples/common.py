@@ -75,7 +75,8 @@ def prove_verify(inst, dev: torch.device, log_inv_rate: int, rebuild=None, repea
         print(f"prove-time{tag}: {_ms(t0, t1)}", flush=True)
         if phases:
             for k, v in csp.last_phase_times.items():
-                print(f"  prove.{k}: {v * 1e3:.1f} ms", flush=True)
+                if "/" not in k:   # the phases and the total, not the spans inside them
+                    print(f"  prove.{k}: {v * 1e3:.1f} ms", flush=True)
     print(f"proof-size: {len(proof)} bytes", flush=True)
     if verify:
         t0 = clock(dev)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import shr
+from ..utils import tracing
 from . import scalar
 
 
@@ -85,6 +86,9 @@ def from_ints(level: int, values, device=None) -> torch.Tensor:
 
 
 def to_ints(level: int, a: torch.Tensor) -> list[int]:
+    """The elements as ints on the host: one read-back (`utils.tracing`
+    counter "readbacks")."""
+    tracing.count("readbacks")
     arr = a.detach().cpu().contiguous().numpy().view(np.uint32)
     if not has_limb_dim(level):
         return [int(x) for x in arr.reshape(-1)]

@@ -33,6 +33,7 @@ from ..device import i32, resolve
 from ..fields import scalar, tower
 from ..fields.isomorphism import aes_to_canonical_b8_matrix, canonical_to_aes_b8_matrix
 from ..ntt.additive_ntt import AdditiveNTT, NTTDomain
+from ..utils import tracing
 
 NUM_ROUNDS = 8
 RATE_AS_U32 = 16
@@ -372,6 +373,7 @@ def digest_many(msgs, device=None) -> np.ndarray:
         states = permute_batch(torch.cat(
             [words[:, b * RATE_AS_U32:(b + 1) * RATE_AS_U32], states[:, RATE_AS_U32:]], dim=1),
             dev)
+    tracing.count("readbacks")
     return states[:, :8].contiguous().view(torch.uint8).cpu().numpy()
 
 

@@ -17,6 +17,7 @@ import numpy as np
 from ...constraint_system import witness as core_witness
 from ...device import resolve
 from ...fields import tower
+from ...utils import tracing
 
 
 class TableWitness:
@@ -107,33 +108,35 @@ class WitnessIndex:
         """The core prover's witness on `device` (CUDA unless named):
         committed columns from the buffers, B1 ones bit-packed on the host
         where they are long enough, the exponent columns computed there and
-        every virtual column materialized."""
-        dev = resolve(device)
-        witness: dict = {}
-        for t, tw in zip(self.system.tables, self.tables):
-            for cd in t.columns:
-                if cd.kind != "committed":
-                    continue
-                oid = oracle_map[(t.table_id, cd.col.index)]
-                if cd.col.index in tw.words:
-                    witness[oid] = (tower.P1, tower.from_numpy(5, tw.words[cd.col.index], dev))
-                    continue
-                vals = tw.columns.get(cd.col.index)
-                assert vals is not None, f"column {cd.col.name} not filled"
-                level = cd.col.level
-                if (level == 0 and vals.shape[0] >= (1 << tower.P1_MIN_VARS)
-                        and vals.shape[0] % 32 == 0):
-                    b = (vals.astype(np.uint32) & 1).reshape(-1, 32)
-                    words = np.bitwise_or.reduce(b << np.arange(32, dtype=np.uint32), axis=1)
-                    witness[oid] = (tower.P1, tower.from_numpy(5, words, dev))
-                elif level <= 5:
-                    witness[oid] = (level, tower.from_numpy(level, vals.astype(np.uint32), dev))
-                else:
-                    witness[oid] = (level, tower.from_numpy(level, vals, dev))
-        if core_system.exponents:
-            # the exponent result columns, which the prover fills
-            from ...constraint_system import exp as exp_mod
-            exp_mod.make_exp_witnesses(core_system, witness)
-        for oid in oracle_map.values():
-            core_witness.materialize(core_system.oracles, witness, oid)
+        every virtual column materialized: a span "frontend/to_device" of
+        `utils.tracing`."""
+        with tracing.span("frontend/to_device", root=True):
+            dev = resolve(device)
+            witness: dict = {}
+            for t, tw in zip(self.system.tables, self.tables):
+                for cd in t.columns:
+                    if cd.kind != "committed":
+                        continue
+                    oid = oracle_map[(t.table_id, cd.col.index)]
+                    if cd.col.index in tw.words:
+                        witness[oid] = (tower.P1, tower.from_numpy(5, tw.words[cd.col.index], dev))
+                        continue
+                    vals = tw.columns.get(cd.col.index)
+                    assert vals is not None, f"column {cd.col.name} not filled"
+                    level = cd.col.level
+                    if (level == 0 and vals.shape[0] >= (1 << tower.P1_MIN_VARS)
+                            and vals.shape[0] % 32 == 0):
+                        b = (vals.astype(np.uint32) & 1).reshape(-1, 32)
+                        words = np.bitwise_or.reduce(b << np.arange(32, dtype=np.uint32), axis=1)
+                        witness[oid] = (tower.P1, tower.from_numpy(5, words, dev))
+                    elif level <= 5:
+                        witness[oid] = (level, tower.from_numpy(level, vals.astype(np.uint32), dev))
+                    else:
+                        witness[oid] = (level, tower.from_numpy(level, vals, dev))
+            if core_system.exponents:
+                # the exponent result columns, which the prover fills
+                from ...constraint_system import exp as exp_mod
+                exp_mod.make_exp_witnesses(core_system, witness)
+            for oid in oracle_map.values():
+                core_witness.materialize(core_system.oracles, witness, oid)
         return witness

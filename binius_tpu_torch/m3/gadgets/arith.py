@@ -17,6 +17,7 @@ import numpy as np
 
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 
@@ -142,18 +143,20 @@ def bitwise_system(log_rows: int, xs, ys, device=None):
     """`examples/bitwise_ops.py`'s table "bitwise" of 2^log_rows rows: the
     u32 inputs xin and yin and their AND, XOR and OR, and its witness on
     `device` (CUDA unless named): returns (core system, witness)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("bitwise")
-    xin = t.add_committed("xin", 0, LOG_U32)
-    yin = t.add_committed("yin", 0, LOG_U32)
-    outs = [u32_bitwise_and(t, "and", xin, yin), u32_bitwise_xor(t, "xor", xin, yin),
-            u32_bitwise_or(t, "or", xin, yin)]
-    core, omap = m3.compile([log_rows])
-    wi = WitnessIndex(m3, [log_rows])
-    tw = wi.table(0)
-    xs, ys = np.asarray(xs, dtype=np.uint64), np.asarray(ys, dtype=np.uint64)
-    for col, vals in zip((xin, yin, *outs), (xs, ys, xs & ys, xs ^ ys, xs | ys)):
-        tw.set_packed_ints(col, vals)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("bitwise")
+        xin = t.add_committed("xin", 0, LOG_U32)
+        yin = t.add_committed("yin", 0, LOG_U32)
+        outs = [u32_bitwise_and(t, "and", xin, yin), u32_bitwise_xor(t, "xor", xin, yin),
+                u32_bitwise_or(t, "or", xin, yin)]
+        core, omap = m3.compile([log_rows])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_rows])
+        tw = wi.table(0)
+        xs, ys = np.asarray(xs, dtype=np.uint64), np.asarray(ys, dtype=np.uint64)
+        for col, vals in zip((xin, yin, *outs), (xs, ys, xs & ys, xs ^ ys, xs | ys)):
+            tw.set_packed_ints(col, vals)
     return core, wi.to_core_witness(core, omap, device)
 
 
@@ -161,17 +164,19 @@ def u32_add_system(log_rows: int, xs, ys, device=None):
     """The one-table u32_add system of 2^log_rows rows adding the u32 rows
     xs and ys, and its witness on `device` (CUDA unless named): returns
     (core system, witness)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("u32add")
-    xin = t.add_committed("xin", 0, LOG_U32)
-    yin = t.add_committed("yin", 0, LOG_U32)
-    adder = U32Add.build(t, "add", xin, yin)
-    core, omap = m3.compile([log_rows])
-    wi = WitnessIndex(m3, [log_rows])
-    tw = wi.table(0)
-    tw.set_packed_ints(xin, xs)
-    tw.set_packed_ints(yin, ys)
-    adder.populate(tw, xs, ys)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("u32add")
+        xin = t.add_committed("xin", 0, LOG_U32)
+        yin = t.add_committed("yin", 0, LOG_U32)
+        adder = U32Add.build(t, "add", xin, yin)
+        core, omap = m3.compile([log_rows])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_rows])
+        tw = wi.table(0)
+        tw.set_packed_ints(xin, xs)
+        tw.set_packed_ints(yin, ys)
+        adder.populate(tw, xs, ys)
     return core, wi.to_core_witness(core, omap, device)
 
 
@@ -179,17 +184,19 @@ def u32_sub_system(log_rows: int, xs, ys, device=None):
     """The one-table ("u32sub") system of 2^log_rows rows subtracting the
     u32 rows ys from xs, and its witness on `device` (CUDA unless named):
     returns (core system, witness)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("u32sub")
-    xin = t.add_committed("xin", 0, LOG_U32)
-    yin = t.add_committed("yin", 0, LOG_U32)
-    sub = U32Sub.build(t, "sub", xin, yin)
-    core, omap = m3.compile([log_rows])
-    wi = WitnessIndex(m3, [log_rows])
-    tw = wi.table(0)
-    tw.set_packed_ints(xin, xs)
-    tw.set_packed_ints(yin, ys)
-    sub.populate(tw, xs, ys)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("u32sub")
+        xin = t.add_committed("xin", 0, LOG_U32)
+        yin = t.add_committed("yin", 0, LOG_U32)
+        sub = U32Sub.build(t, "sub", xin, yin)
+        core, omap = m3.compile([log_rows])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_rows])
+        tw = wi.table(0)
+        tw.set_packed_ints(xin, xs)
+        tw.set_packed_ints(yin, ys)
+        sub.populate(tw, xs, ys)
     return core, wi.to_core_witness(core, omap, device)
 
 

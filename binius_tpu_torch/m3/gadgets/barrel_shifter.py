@@ -18,6 +18,7 @@ import numpy as np
 
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 
@@ -108,14 +109,16 @@ def barrel_shifter_system(log_rows: int, x, amounts, device=None):
     column xin and its three shifters (`KINDS`), each by its own amounts,
     and its witness on `device` (CUDA unless named): returns (core system,
     witness)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("barrel_shifter")
-    xin = t.add_committed("xin", 0, LOG_U32)
-    gadgets = [BarrelShifter.build(t, name, xin, kind) for name, kind in KINDS]
-    core, omap = m3.compile([log_rows])
-    wi = WitnessIndex(m3, [log_rows])
-    tw = wi.table(0)
-    tw.set_packed_ints(xin, x)
-    for g, (_, kind), a in zip(gadgets, KINDS, amounts):
-        g.populate(tw, x, a, kind)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("barrel_shifter")
+        xin = t.add_committed("xin", 0, LOG_U32)
+        gadgets = [BarrelShifter.build(t, name, xin, kind) for name, kind in KINDS]
+        core, omap = m3.compile([log_rows])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_rows])
+        tw = wi.table(0)
+        tw.set_packed_ints(xin, x)
+        for g, (_, kind), a in zip(gadgets, KINDS, amounts):
+            g.populate(tw, x, a, kind)
     return core, wi.to_core_witness(core, omap, device)

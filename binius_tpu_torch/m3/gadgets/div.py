@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 
 from ...math.arith import ArithExpr
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 from .mul import MulUU32
@@ -205,9 +206,11 @@ def div_system(log_rows: int, ps, qs, device=None):
     """The one-table ("div") system of 2^log_rows divisions of the u32 rows
     ps by qs (`DivUU32`), and its witness on `device` (CUDA unless named),
     the exponent columns computed there: returns (core system, witness)."""
-    m3 = M3ConstraintSystem()
-    gadget = DivUU32.build(m3.add_table("div"), "div")
-    core, omap = m3.compile([log_rows])
-    wi = WitnessIndex(m3, [log_rows])
-    gadget.populate(wi.table(0), ps, qs)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        gadget = DivUU32.build(m3.add_table("div"), "div")
+        core, omap = m3.compile([log_rows])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_rows])
+        gadget.populate(wi.table(0), ps, qs)
     return core, wi.to_core_witness(core, omap, device)

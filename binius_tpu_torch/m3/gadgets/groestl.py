@@ -29,6 +29,7 @@ from ...fields.isomorphism import aes_to_canonical_b8_matrix, canonical_to_aes_b
 from ...hash.groestl import MIX, SHIFTS_P, SHIFTS_Q
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 
@@ -285,10 +286,12 @@ def groestl_system(log_n: int, states, device=None):
     """`examples/groestl.py`'s one-table system of 2^log_n P permutations
     of the given states, and its witness on `device` (CUDA unless named):
     returns (core system, witness, output states)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("groestl_p")
-    g = Permutation.build(t, "perm", "P")
-    core, omap = m3.compile([log_n])
-    wi = WitnessIndex(m3, [log_n])
-    outs = g.populate(wi.table(0), states)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("groestl_p")
+        g = Permutation.build(t, "perm", "P")
+        core, omap = m3.compile([log_n])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_n])
+        outs = g.populate(wi.table(0), states)
     return core, wi.to_core_witness(core, omap, device), outs

@@ -31,6 +31,7 @@ import numpy as np
 
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 
@@ -181,13 +182,15 @@ def keccak_system(log_n: int, inputs, device=None):
     """`examples/keccak.py`'s one-table system of 2^log_n permutations of
     the given inputs, and its witness on `device` (CUDA unless named):
     returns (core system, witness, output lanes per row)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("keccak")
-    state_in = [t.add_committed(f"in{i}", 0, LOG_LANE) for i in range(25)]
-    gadget = KeccakF.build(t, "kf", state_in)
-    core, omap = m3.compile([log_n])
-    wi = WitnessIndex(m3, [log_n])
-    outs = gadget.populate(wi.table(0), inputs)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("keccak")
+        state_in = [t.add_committed(f"in{i}", 0, LOG_LANE) for i in range(25)]
+        gadget = KeccakF.build(t, "kf", state_in)
+        core, omap = m3.compile([log_n])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_n])
+        outs = gadget.populate(wi.table(0), inputs)
     return core, wi.to_core_witness(core, omap, device), outs
 
 
@@ -363,10 +366,12 @@ def keccak_lookups_system(n_permutations: int, inputs, device=None):
     inputs (its multiplicity bits sized for the power of two that holds
     them), and its witness on `device` (CUDA unless named): returns (core
     system, witness, table sizes, output lanes per row)."""
-    m3 = M3ConstraintSystem()
-    cs = KeccakLookedupCS.build(m3, max(0, (n_permutations - 1).bit_length()))
-    sizes = cs.table_sizes(n_permutations)
-    core, omap = m3.compile_sizes(sizes)
-    wi = WitnessIndex.with_sizes(m3, sizes)
-    outs = cs.populate(wi, inputs)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        cs = KeccakLookedupCS.build(m3, max(0, (n_permutations - 1).bit_length()))
+        sizes = cs.table_sizes(n_permutations)
+        core, omap = m3.compile_sizes(sizes)
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex.with_sizes(m3, sizes)
+        outs = cs.populate(wi, inputs)
     return core, wi.to_core_witness(core, omap, device), sizes, outs

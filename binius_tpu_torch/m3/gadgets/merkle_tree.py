@@ -39,6 +39,7 @@ from ...hash.groestl import bytes_to_state
 from ...hash.groestl_cuda import pair_levels, split_layers
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import M3ConstraintSystem
 from ..builder.witness import WitnessIndex
 from .groestl import Permutation, _to_tower_table
@@ -257,6 +258,7 @@ class MerkleTreeTrace:
         buf = torch.empty((2 * n - 1, 8), dtype=torch.int32, device=resolve(device))
         buf[:n] = torch.from_numpy(np.ascontiguousarray(leaves).view(np.int32)).to(buf.device)
         # levels[d] holds the nodes at depth (depth - d); the root is last
+        tracing.count("readbacks")
         levels = split_layers(pair_levels(buf).cpu().numpy().view(np.uint8))
         needed = set()  # (depth, index) of the nodes pulled
         for li in sorted(set(opened)):
@@ -309,13 +311,16 @@ def merkle_system(leaves, opened: list[int], device=None):
     table sizes, trace). The increment lookup's multiplicity bits are the
     example's 8, or as many as the largest count of nodes at one depth
     needs."""
-    trace = MerkleTreeTrace.generate(ROOT_ID, leaves, opened, device)
-    most = max(np.bincount([e.parent_depth for e in trace.events]))
-    m3 = M3ConstraintSystem()
-    cs = MerkleTreeCS(m3, max(8, int(most).bit_length()))
-    sizes = cs.table_sizes(trace)
-    core, omap = m3.compile_sizes(sizes)
-    wi = WitnessIndex.with_sizes(m3, sizes)
-    cs.fill_tables(trace, wi)
-    statement = {"boundaries": cs.make_boundaries(trace), "table_sizes": sizes}
+    with tracing.span("frontend/witness", root=True):
+        trace = MerkleTreeTrace.generate(ROOT_ID, leaves, opened, device)
+        most = max(np.bincount([e.parent_depth for e in trace.events]))
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        cs = MerkleTreeCS(m3, max(8, int(most).bit_length()))
+        sizes = cs.table_sizes(trace)
+        core, omap = m3.compile_sizes(sizes)
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex.with_sizes(m3, sizes)
+        cs.fill_tables(trace, wi)
+        statement = {"boundaries": cs.make_boundaries(trace), "table_sizes": sizes}
     return core, wi.to_core_witness(core, omap, device), statement, trace

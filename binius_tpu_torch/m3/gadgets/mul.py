@@ -17,6 +17,7 @@ import numpy as np
 from ...fields import scalar
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 from .arith import LOG_U32, U32Add
@@ -193,9 +194,11 @@ def mul_system(log_n: int, xs, ys, device=None):
     """The system of `mul_table` for the products x * y and its witness
     on `device` (CUDA unless named), the exponent columns computed there:
     returns (core system, witness)."""
-    m3, gadget, core, omap = mul_table(log_n)
-    wi = WitnessIndex(m3, [log_n])
-    gadget.populate(wi.table(0), xs, ys)
+    with tracing.span("frontend/compile", root=True):
+        m3, gadget, core, omap = mul_table(log_n)
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_n])
+        gadget.populate(wi.table(0), xs, ys)
     return core, wi.to_core_witness(core, omap, device)
 
 
@@ -204,15 +207,17 @@ def u32_mul_system(log_rows: int, xs, ys, device=None):
     (`U32Mul` of the committed xin and yin) of the u32 rows xs and ys, and
     its witness on `device` (CUDA unless named): returns (core system,
     witness)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("mul")
-    xin = t.add_committed("xin", 0, LOG_U32)
-    yin = t.add_committed("yin", 0, LOG_U32)
-    gadget = U32Mul.build(t, "mul", xin, yin)
-    core, omap = m3.compile([log_rows])
-    wi = WitnessIndex(m3, [log_rows])
-    tw = wi.table(0)
-    tw.set_packed_ints(xin, xs)
-    tw.set_packed_ints(yin, ys)
-    gadget.populate(tw, xs, ys)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("mul")
+        xin = t.add_committed("xin", 0, LOG_U32)
+        yin = t.add_committed("yin", 0, LOG_U32)
+        gadget = U32Mul.build(t, "mul", xin, yin)
+        core, omap = m3.compile([log_rows])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_rows])
+        tw = wi.table(0)
+        tw.set_packed_ints(xin, xs)
+        tw.set_packed_ints(yin, ys)
+        gadget.populate(tw, xs, ys)
     return core, wi.to_core_witness(core, omap, device)

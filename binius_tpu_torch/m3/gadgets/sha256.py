@@ -19,6 +19,7 @@ import numpy as np
 
 from ...math.arith import ArithExpr
 from ...protocols import shift_ind
+from ...utils import tracing
 from ..builder.table import Col, M3ConstraintSystem, TableBuilder
 from ..builder.witness import WitnessIndex
 from .arith import LOG_U32, U32Add
@@ -196,15 +197,17 @@ def sha256_system(log_n: int, msgs, device=None):
     """`examples/sha256.py`'s one-table system of 2^log_n compressions of
     the given message words, and its witness on `device` (CUDA unless
     named): returns (core system, witness, digest words per row)."""
-    m3 = M3ConstraintSystem()
-    t = m3.add_table("sha256")
-    msg = [t.add_committed(f"m{i}", 0, LOG_U32) for i in range(16)]
-    gadget = Sha256.build(t, "sha", msg)
-    core, omap = m3.compile([log_n])
-    wi = WitnessIndex(m3, [log_n])
-    tw = wi.table(0)
-    msgs = np.asarray(msgs, dtype=np.uint32)
-    for i, col in enumerate(msg):
-        tw.set_packed_ints(col, msgs[:, i].astype(np.uint64))
-    digest = gadget.populate(tw, msgs)
+    with tracing.span("frontend/compile", root=True):
+        m3 = M3ConstraintSystem()
+        t = m3.add_table("sha256")
+        msg = [t.add_committed(f"m{i}", 0, LOG_U32) for i in range(16)]
+        gadget = Sha256.build(t, "sha", msg)
+        core, omap = m3.compile([log_n])
+    with tracing.span("frontend/witness", root=True):
+        wi = WitnessIndex(m3, [log_n])
+        tw = wi.table(0)
+        msgs = np.asarray(msgs, dtype=np.uint32)
+        for i, col in enumerate(msg):
+            tw.set_packed_ints(col, msgs[:, i].astype(np.uint64))
+        digest = gadget.populate(tw, msgs)
     return core, wi.to_core_witness(core, omap, device), digest

@@ -28,6 +28,7 @@ import torch
 from ..device import resolve
 from ..hash import groestl, groestl_cuda
 from ..parallel import mesh as mesh_mod
+from ..utils import tracing
 
 # the layers of at most this many rows (the root among them) cross to the
 # host in one copy when the tree is built: the root and the layers FRI
@@ -128,6 +129,7 @@ def verify_branch_to_layer(layer: np.ndarray, index: int, leaf_digest: bytes,
 
 def _digests_to_np(dig: torch.Tensor) -> np.ndarray:
     """(N, 8) int32 digests -> (N, 32) uint8 host rows."""
+    tracing.count("readbacks")
     return dig.detach().cpu().contiguous().numpy().view(np.uint8).reshape(-1, 32)
 
 

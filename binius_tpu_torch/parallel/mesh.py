@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..device import resolve
 from ..fields import tower
+from ..utils import tracing
 
 AXIS = "hypercube"
 
@@ -176,7 +177,10 @@ def block_of(mesh: Mesh, x) -> torch.Tensor:
 
 def _out(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of `t` where the backend can send it."""
-    return (t.cpu() if mesh.staged else t).contiguous()
+    if mesh.staged:
+        tracing.count("readbacks")
+        t = t.cpu()
+    return t.contiguous()
 
 
 def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:

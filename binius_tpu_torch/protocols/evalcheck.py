@@ -29,6 +29,7 @@ from ..constraint_system import oracle as om
 from ..fields import scalar, tower
 from ..math import mle
 from ..math.arith import ArithExpr, CompositionPoly, bivariate_product
+from ..utils import tracing
 from . import shift_ind
 from .sumcheck import prove as sc_prove
 from .sumcheck import verify as sc_verify
@@ -112,23 +113,30 @@ class _Walker:
         return self.transcript.message().read_scalars(LEVEL, values_if_prover)
 
     def run(self, claims: list[EvalcheckClaim]) -> list[EvalcheckClaim]:
+        """Per wave, three spans of `utils.tracing`: "witness_evals" (the
+        prover's batched evaluations and their read-back), "walk" (the
+        claims, deduplicated, through `_process`) and "sumcheck"."""
         queue = list(claims)
         while queue:
             if self.is_prover:
-                self._prefetch_witness_evals(queue)
+                with tracing.span("witness_evals"):
+                    self._prefetch_witness_evals(queue)
             shift_entries: list[_ShiftEntry] = []
             composite_entries: list[_CompositeEntry] = []
             next_queue: list[EvalcheckClaim] = []
-            for claim in queue:
-                key = _dedup_key(claim)
-                if key in self.seen:
-                    if self.seen[key] != claim.eval:
-                        raise ValueError("conflicting duplicate evaluation claims")
-                    continue
-                self.seen[key] = claim.eval
-                self._process(claim, shift_entries, composite_entries, next_queue)
+            with tracing.span("walk"):
+                for claim in queue:
+                    key = _dedup_key(claim)
+                    if key in self.seen:
+                        if self.seen[key] != claim.eval:
+                            raise ValueError("conflicting duplicate evaluation claims")
+                        continue
+                    self.seen[key] = claim.eval
+                    self._process(claim, shift_entries, composite_entries, next_queue)
             if shift_entries or composite_entries:
-                next_queue.extend(self._run_sumcheck_batch(shift_entries, composite_entries))
+                with tracing.span("sumcheck"):
+                    next_queue.extend(self._run_sumcheck_batch(shift_entries,
+                                                               composite_entries))
             queue = next_queue
         return self.committed
 
@@ -228,6 +236,43 @@ class _Walker:
                     self.oracles[e.oracle.inner[0]].tower_level, b), self.device)
         return torch.stack([proj_all, torch.stack(mult)], dim=1).reshape(2 * k, 1 << b, 4)
 
+    def _provers(self, specs, claims) -> list:
+        """The prover's sumcheck provers of a wave's specs and claims."""
+        provers = []
+        i = 0
+        while i < len(specs):
+            kind, e, nv = specs[i]
+            if kind != "composite":
+                # a run of shift and packed specs of equal n_vars: one
+                # batched prover
+                j = i
+                while j < len(specs) and specs[j][0] != "composite" and specs[j][2] == nv:
+                    j += 1
+                provers.append(sc_prove.BatchedBivariateSumcheckProver(
+                    claims[i:j], self._shift_pair_stack([s[1] for s in specs[i:j]], nv),
+                    order_high=False))
+                i = j
+            else:
+                # a run of composites of one expression at one point (the
+                # flush oracles of one size): one stacked prover
+                o = e.oracle
+                key = (nv, e.claim.point, o.composite, len(o.inner))
+                j = i + 1
+                while (j < len(specs) and specs[j][0] == "composite"
+                       and (specs[j][2], specs[j][1].claim.point, specs[j][1].oracle.composite,
+                            len(specs[j][1].oracle.inner)) == key):
+                    j += 1
+                run = [s[1].oracle for s in specs[i:j]]
+                ids = list(dict.fromkeys(ii for r in run for ii in r.inner))
+                pos = {ii: p for p, ii in enumerate(ids)}
+                eq_ml = (LEVEL, self._eq_expansion(tuple(e.claim.point)))
+                provers.append(sc_prove.EqStackedSumcheckProver(
+                    claims[i:j], getattr(o.composite, "expr", o.composite),
+                    sc_prove._stack([self.witness[ii] for ii in ids] + [eq_ml], nv),
+                    [[pos[ii] for ii in r.inner] for r in run], e.claim.point))
+                i = j
+        return provers
+
     def _run_sumcheck_batch(self, shift_entries, composite_entries) -> list[EvalcheckClaim]:
         """Batch-prove or verify the sumchecks of a wave's shifted and
         composite oracles; returns the reduced inner-oracle claims."""
@@ -253,39 +298,8 @@ class _Walker:
                 eq_points.append(list(e.claim.point))
 
         if self.is_prover:
-            provers = []
-            i = 0
-            while i < len(specs):
-                kind, e, nv = specs[i]
-                if kind != "composite":
-                    # a run of shift and packed specs of equal n_vars: one
-                    # batched prover
-                    j = i
-                    while j < len(specs) and specs[j][0] != "composite" and specs[j][2] == nv:
-                        j += 1
-                    provers.append(sc_prove.BatchedBivariateSumcheckProver(
-                        claims[i:j], self._shift_pair_stack([s[1] for s in specs[i:j]], nv),
-                        order_high=False))
-                    i = j
-                else:
-                    # a run of composites of one expression at one point (the
-                    # flush oracles of one size): one stacked prover
-                    o = e.oracle
-                    key = (nv, e.claim.point, o.composite, len(o.inner))
-                    j = i + 1
-                    while (j < len(specs) and specs[j][0] == "composite"
-                           and (specs[j][2], specs[j][1].claim.point, specs[j][1].oracle.composite,
-                                len(specs[j][1].oracle.inner)) == key):
-                        j += 1
-                    run = [s[1].oracle for s in specs[i:j]]
-                    ids = list(dict.fromkeys(ii for r in run for ii in r.inner))
-                    pos = {ii: p for p, ii in enumerate(ids)}
-                    eq_ml = (LEVEL, self._eq_expansion(tuple(e.claim.point)))
-                    provers.append(sc_prove.EqStackedSumcheckProver(
-                        claims[i:j], getattr(o.composite, "expr", o.composite),
-                        sc_prove._stack([self.witness[ii] for ii in ids] + [eq_ml], nv),
-                        [[pos[ii] for ii in r.inner] for r in run], e.claim.point))
-                    i = j
+            with tracing.span("provers"):
+                provers = self._provers(specs, claims)
             out = sc_prove.batch_prove(provers, self.transcript)
             ml_evals, challenges = out.multilinear_evals, out.challenges
         else:

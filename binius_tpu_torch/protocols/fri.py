@@ -34,6 +34,7 @@ from ..math import mle
 from ..merkle.tree import MerkleTree, commit_codeword_device, hash_leaves
 from ..ntt.additive_ntt import AdditiveNTT, NTTDomain
 from ..parallel import mesh as mesh_mod
+from ..utils import tracing
 
 LEVEL = 7       # codeword field (B128)
 ENC_LEVEL = 5   # FEncode (B32), the twiddle field
@@ -261,6 +262,7 @@ def np_elem_to_int(cw_np: np.ndarray, i: int) -> int:
 
 def codeword_to_numpy(codeword: torch.Tensor) -> np.ndarray:
     """(N, 4) int32 codeword -> (N, 4) uint32 host copy."""
+    tracing.count("readbacks")
     return codeword.detach().cpu().contiguous().numpy().view(np.uint32)
 
 

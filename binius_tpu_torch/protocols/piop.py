@@ -25,6 +25,7 @@ import torch
 from ..device import resolve
 from ..fields import scalar, tower
 from ..math.arith import ArithExpr, CompositionPoly
+from ..utils import tracing
 from . import fri as fri_mod
 from .sumcheck import front_loaded
 from .sumcheck.common import LEVEL, CompositeSumClaim, SumcheckClaim
@@ -170,7 +171,8 @@ def prove_rounds(fri_params: fri_mod.FRIParams, commit_meta: CommitMeta, codewor
                  tree, packed_mles: list, transparent_mles: list,
                  claims: list[PIOPSumcheckClaim], transcript, device=None) -> fri_mod.FRIFolder:
     """The interleaved rounds of `prove`: each round's sumcheck message, its
-    challenge, the FRI fold and, at arity boundaries, the new oracle's root.
+    challenge, the FRI fold (a span "fri.fold") and, at arity boundaries,
+    the new oracle's root.
     Returns the folder, whose `finish_proof` writes the query phase."""
     dev = resolve(device)
     codeword = codeword.to(dev)
@@ -188,7 +190,8 @@ def prove_rounds(fri_params: fri_mod.FRIParams, commit_meta: CommitMeta, codewor
         batch.send_round_proof(transcript)
         challenge = transcript.sample_scalar(LEVEL)
         batch.receive_challenge(challenge)
-        root = folder.execute_fold_round(challenge)
+        with tracing.span("fri.fold"):
+            root = folder.execute_fold_round(challenge)
         if root is not None:
             transcript.message().write_bytes(root)
     batch.finish(transcript)
@@ -200,9 +203,14 @@ def prove(fri_params: fri_mod.FRIParams, commit_meta: CommitMeta, codeword: torc
           transcript, device=None) -> None:
     """packed_mles / transparent_mles: [(data, n_vars)] ascending by n_vars.
     Runs on CUDA unless `device` names another; the codeword and tree come
-    from `commit` on the same device."""
-    prove_rounds(fri_params, commit_meta, codeword, tree, packed_mles, transparent_mles,
-                 claims, transcript, device).finish_proof(transcript)
+    from `commit` on the same device. Two spans of `utils.tracing`: "rounds"
+    (the sumcheck interleaved with the FRI folds) and "queries" (the query
+    phase and its Merkle openings)."""
+    with tracing.span("rounds"):
+        folder = prove_rounds(fri_params, commit_meta, codeword, tree, packed_mles,
+                              transparent_mles, claims, transcript, device)
+    with tracing.span("queries"):
+        folder.finish_proof(transcript)
 
 
 @dataclasses.dataclass

@@ -32,6 +32,7 @@ from ..convert import ints_to_pairs, pairs_to_ints
 from ..device import resolve
 from ..fields import scalar, tower
 from ..math import mle
+from ..utils import tracing
 from .piop import PIOPSumcheckClaim
 from .sumcheck.common import LEVEL
 
@@ -319,11 +320,15 @@ def prove(claims: list[RingSwitchEvalClaim], witnesses: list, transcript,
     `tower.P1`); claims sorted ascending by packed n_vars. Runs on CUDA
     unless `device` names another. Claims group by (level, n_vars, suffix)
     for one partial evaluation each; the row-batch folds and transparents
-    run per level and per (level, suffix)."""
+    run per level and per (level, suffix). Two spans of `utils.tracing`:
+    "host_algebra" (the mixing and row-batching coefficients) and
+    "device_evals" (the partial evaluations, folds and transparents, and
+    their read-backs)."""
     dev = resolve(device)
     witnesses = [(lvl, torch.as_tensor(d).to(dev)) for lvl, d in witnesses]
     n = len(claims)
-    mixing = _mixing_coeffs(transcript, n)
+    with tracing.span("host_algebra"):
+        mixing = _mixing_coeffs(transcript, n)
     mix_dev = tower.from_ints(LEVEL, mixing, dev)
 
     eq_memo: dict = {}
@@ -333,66 +338,68 @@ def prove(claims: list[RingSwitchEvalClaim], witnesses: list, transcript,
             eq_memo[suffix] = mle.eq_ind_partial_eval(LEVEL, tower.from_ints(LEVEL, suffix, dev))
         return eq_memo[suffix]
 
-    # tensor-algebra partial evaluations, scaled by the mixing coefficients
     levels = sorted({c.level for c in claims})
     claims_of_level: dict = {lvl: [] for lvl in levels}
     pos_in_level = [0] * n
     for i, c in enumerate(claims):
         pos_in_level[i] = len(claims_of_level[c.level])
         claims_of_level[c.level].append(i)
-    scaled_by_level: dict = {}
-    for lvl in levels:
-        idxs = claims_of_level[lvl]
-        kappa = 7 - lvl
-        groups: dict = {}
-        for pos, i in enumerate(idxs):
-            c = claims[i]
-            w_lvl, w_data = witnesses[c.committed_idx]
-            assert (0 if w_lvl == tower.P1 else w_lvl) == lvl
-            groups.setdefault((len(c.point), c.suffix, w_lvl, _witness_n_vars(w_lvl, w_data)),
-                              []).append(pos)
-        chunks, order = [], []
-        for (nv, suffix, w_lvl, wit_n), poss in groups.items():
-            stack = torch.stack([witnesses[claims[idxs[p]].committed_idx][1] for p in poss])
-            if nv == kappa:
-                stack = tower.resolve_p1(w_lvl, stack)[1]
-                if wit_n < kappa:
-                    # a column shorter than one packed element repeats to
-                    # fill it (padded_packed_eval)
-                    reps = [1] * stack.ndim
-                    reps[1] = 1 << (kappa - wit_n)
-                    stack = stack.repeat(*reps)
-                chunks.append(tower.embed(lvl, LEVEL, stack))
-            else:
-                chunks.append(mle.batched_evaluate_partial_high(
-                    w_lvl, stack, nv, eq_of(suffix), kappa)[1])
-            order.extend(poss)
-        inv = [0] * len(idxs)
-        for p2, p in enumerate(order):
-            inv[p] = p2
-        tensors = torch.cat(chunks)[torch.tensor(inv, dtype=torch.long, device=dev)]
-        mix_lvl = mix_dev[torch.tensor(idxs, dtype=torch.long, device=dev)]
-        scaled_by_level[lvl] = tower.mul(LEVEL, tensors, mix_lvl[:, None, :])
-
-    # mix per shared prefix; the tensor elements go to the transcript
-    prefixes, claim_to_prefix = _group_by([c.prefix for c in claims])
-    w = transcript.message()
-    for pi in range(len(prefixes)):
-        members = [i for i, p in enumerate(claim_to_prefix) if p == pi]
-        lvl = claims[members[0]].level
-        rows = scaled_by_level[lvl][torch.tensor([pos_in_level[i] for i in members],
-                                                 dtype=torch.long, device=dev)]
-        w.write_scalars(LEVEL, tower.to_ints(LEVEL, tower.xor_reduce(rows, 0)))
+    with tracing.span("device_evals"):
+        # tensor-algebra partial evaluations, scaled by the mixing coefficients
+        scaled_by_level: dict = {}
+        for lvl in levels:
+            idxs = claims_of_level[lvl]
+            kappa = 7 - lvl
+            groups: dict = {}
+            for pos, i in enumerate(idxs):
+                c = claims[i]
+                w_lvl, w_data = witnesses[c.committed_idx]
+                assert (0 if w_lvl == tower.P1 else w_lvl) == lvl
+                groups.setdefault((len(c.point), c.suffix, w_lvl, _witness_n_vars(w_lvl, w_data)),
+                                  []).append(pos)
+            chunks, order = [], []
+            for (nv, suffix, w_lvl, wit_n), poss in groups.items():
+                stack = torch.stack([witnesses[claims[idxs[p]].committed_idx][1] for p in poss])
+                if nv == kappa:
+                    stack = tower.resolve_p1(w_lvl, stack)[1]
+                    if wit_n < kappa:
+                        # a column shorter than one packed element repeats to
+                        # fill it (padded_packed_eval)
+                        reps = [1] * stack.ndim
+                        reps[1] = 1 << (kappa - wit_n)
+                        stack = stack.repeat(*reps)
+                    chunks.append(tower.embed(lvl, LEVEL, stack))
+                else:
+                    chunks.append(mle.batched_evaluate_partial_high(
+                        w_lvl, stack, nv, eq_of(suffix), kappa)[1])
+                order.extend(poss)
+            inv = [0] * len(idxs)
+            for p2, p in enumerate(order):
+                inv[p] = p2
+            tensors = torch.cat(chunks)[torch.tensor(inv, dtype=torch.long, device=dev)]
+            mix_lvl = mix_dev[torch.tensor(idxs, dtype=torch.long, device=dev)]
+            scaled_by_level[lvl] = tower.mul(LEVEL, tensors, mix_lvl[:, None, :])
+        # mix per shared prefix; the tensor elements go to the transcript
+        prefixes, claim_to_prefix = _group_by([c.prefix for c in claims])
+        w = transcript.message()
+        for pi in range(len(prefixes)):
+            members = [i for i, p in enumerate(claim_to_prefix) if p == pi]
+            lvl = claims[members[0]].level
+            rows = scaled_by_level[lvl][torch.tensor([pos_in_level[i] for i in members],
+                                                     dtype=torch.long, device=dev)]
+            w.write_scalars(LEVEL, tower.to_ints(LEVEL, tower.xor_reduce(rows, 0)))
 
     # row-batching challenges and the vertical folds
     row_challenges = transcript.sample_scalars(LEVEL, max(c.kappa for c in claims))
-    row_coeffs = _eq_expansion_scalar(row_challenges)
+    with tracing.span("host_algebra"):
+        row_coeffs = _eq_expansion_scalar(row_challenges)
     row_batched = [0] * n
-    for lvl in levels:
-        rc = tower.from_ints(LEVEL, row_coeffs[:1 << (7 - lvl)], dev)
-        vals = tower.to_ints(LEVEL, _fold_vertical_batch(lvl, scaled_by_level[lvl], rc))
-        for pos, i in enumerate(claims_of_level[lvl]):
-            row_batched[i] = vals[pos]
+    with tracing.span("device_evals"):
+        for lvl in levels:
+            rc = tower.from_ints(LEVEL, row_coeffs[:1 << (7 - lvl)], dev)
+            vals = tower.to_ints(LEVEL, _fold_vertical_batch(lvl, scaled_by_level[lvl], rc))
+            for pos, i in enumerate(claims_of_level[lvl]):
+                row_batched[i] = vals[pos]
     transcript.message().write_scalars(LEVEL, row_batched)
 
     # the transparents, grouped by (level, suffix)
@@ -400,12 +407,13 @@ def prove(claims: list[RingSwitchEvalClaim], witnesses: list, transcript,
     tgroups: dict = {}
     for i, c in enumerate(claims):
         tgroups.setdefault((c.level, c.suffix), []).append(i)
-    for (lvl, suffix), idxs in tgroups.items():
-        out = _eq_ind_mle_batch(lvl, eq_of(suffix),
-                                mix_dev[torch.tensor(idxs, dtype=torch.long, device=dev)],
-                                row_coeffs)
-        for j, i in enumerate(idxs):
-            transparents[i] = (out[j], len(suffix))
+    with tracing.span("device_evals"):
+        for (lvl, suffix), idxs in tgroups.items():
+            out = _eq_ind_mle_batch(lvl, eq_of(suffix),
+                                    mix_dev[torch.tensor(idxs, dtype=torch.long, device=dev)],
+                                    row_coeffs)
+            for j, i in enumerate(idxs):
+                transparents[i] = (out[j], len(suffix))
     sc = [PIOPSumcheckClaim(len(c.suffix), c.committed_idx, i, rb)
           for i, (c, rb) in enumerate(zip(claims, row_batched))]
     return ReducedRingSwitch(sc, transparents)

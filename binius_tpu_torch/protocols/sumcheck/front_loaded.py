@@ -15,6 +15,7 @@ is recomputed by the verifier instead of being sent.
 from __future__ import annotations
 
 from ...fields import scalar
+from ...utils import tracing
 from . import common
 from .common import LEVEL
 from .verify import _eq_scalar
@@ -50,7 +51,9 @@ class FrontLoadedBatchProver:
     `finish` returns one entry per claim, and the transcript stays
     byte-identical to separate per-claim provers. Each round mixes a
     prover's composites with their weights on the device
-    (`compute_mixed_round_poly`) before one interpolation.
+    (`compute_mixed_round_poly`) before one interpolation. Spans of
+    `utils.tracing`: "sumcheck.round" (a round's evaluations and their
+    read-back), "sumcheck.fold" and "sumcheck.finish".
     """
 
     def __init__(self, provers: list, transcript, coeffs: list | None = None):
@@ -90,24 +93,27 @@ class FrontLoadedBatchProver:
                 self.finish_rounds.append(self.round)
 
     def send_round_proof(self, transcript) -> None:
-        w = transcript.message()
-        self._finish_ready(w)
-        combined: list[int] = []
-        for p, weights in zip(self.provers, self.weights):
-            combined = common.add_coeffs(combined, p.compute_mixed_round_poly(weights))
-        deg = max((max(cs.composition.degree() for cs in p.claim.composite_sums)
-                   if p.claim.composite_sums else 0 for p in self.provers), default=0)
-        combined = combined + [0] * (deg + 1 - len(combined))
-        w.write_scalars(LEVEL, common.truncate(combined))
+        with tracing.span("sumcheck.round"):
+            w = transcript.message()
+            self._finish_ready(w)
+            combined: list[int] = []
+            for p, weights in zip(self.provers, self.weights):
+                combined = common.add_coeffs(combined, p.compute_mixed_round_poly(weights))
+            deg = max((max(cs.composition.degree() for cs in p.claim.composite_sums)
+                       if p.claim.composite_sums else 0 for p in self.provers), default=0)
+            combined = combined + [0] * (deg + 1 - len(combined))
+            w.write_scalars(LEVEL, common.truncate(combined))
 
     def receive_challenge(self, challenge: int) -> None:
-        for p in self.provers:
-            p.fold(challenge)
+        with tracing.span("sumcheck.fold"):
+            for p in self.provers:
+                p.fold(challenge)
         self.round += 1
 
     def finish(self, transcript) -> None:
-        w = transcript.message()
-        self._finish_ready(w)
+        with tracing.span("sumcheck.finish"):
+            w = transcript.message()
+            self._finish_ready(w)
         assert not self.provers, "all claims must finish by the final round"
 
 

@@ -47,6 +47,7 @@ from ...fields import tower
 from ...math import mle
 from ...math.univariate import EvaluationDomain
 from ...parallel import mesh as mesh_mod
+from ...utils import tracing
 from . import common, front_loaded
 from .common import LEVEL, SumcheckClaim
 
@@ -521,6 +522,7 @@ class EqStackedSumcheckProver:
         """Per claim, [eq evaluation, its multilinears' evaluations]."""
         assert self.n_remaining == 0
         vals = tower.to_ints(LEVEL, self.stack[:, 0])
+        tracing.count("readbacks")
         return [[vals[-1], *(vals[r] for r in row)] for row in self.rows.tolist()]
 
 
@@ -533,7 +535,9 @@ class BatchSumcheckOutput:
 def batch_prove(provers: list, transcript) -> BatchSumcheckOutput:
     """Rear-loaded batched sumcheck; provers sorted descending by n_vars,
     one folding order. A prover of several claims (`multi_claim`) takes one
-    batching coefficient per claim."""
+    batching coefficient per claim. Spans of `utils.tracing`, as the
+    front-loaded prover's: "sumcheck.round", "sumcheck.fold",
+    "sumcheck.finish"."""
     assert all(provers[i].n_vars >= provers[i + 1].n_vars for i in range(len(provers) - 1))
     n_rounds = provers[0].n_vars if provers else 0
     batch_coeffs: list[int] = []
@@ -550,34 +554,37 @@ def batch_prove(provers: list, transcript) -> BatchSumcheckOutput:
         while next_idx < len(provers) and provers[next_idx].n_vars == n_rounds - rnd:
             activate(next_idx)
             next_idx += 1
-        combined: list[int] = []
-        for pi, p in enumerate(provers[:next_idx]):
-            if getattr(p, "multi_claim", False):
-                # one product composite per claim, each its own coefficient
-                phis = batch_coeffs[coeff_start[pi]:coeff_start[pi] + p.n_claims]
-            else:
-                phis = [batch_coeffs[coeff_start[pi]]] * len(p.claim.composite_sums)
-            combined = common.add_coeffs(combined, p.compute_mixed_round_poly(phis))
-        transcript.message().write_scalars(LEVEL, common.truncate(combined))
+        with tracing.span("sumcheck.round"):
+            combined: list[int] = []
+            for pi, p in enumerate(provers[:next_idx]):
+                if getattr(p, "multi_claim", False):
+                    # one product composite per claim, each its own coefficient
+                    phis = batch_coeffs[coeff_start[pi]:coeff_start[pi] + p.n_claims]
+                else:
+                    phis = [batch_coeffs[coeff_start[pi]]] * len(p.claim.composite_sums)
+                combined = common.add_coeffs(combined, p.compute_mixed_round_poly(phis))
+            transcript.message().write_scalars(LEVEL, common.truncate(combined))
         challenge = transcript.sample_scalar(LEVEL)
         challenges.append(challenge)
-        for p in provers[:next_idx]:
-            p.fold(challenge)
+        with tracing.span("sumcheck.fold"):
+            for p in provers[:next_idx]:
+                p.fold(challenge)
     while next_idx < len(provers) and provers[next_idx].n_vars == 0:
         activate(next_idx)
         next_idx += 1
     all_evals = []
-    for p in provers:
-        if getattr(p, "multi_claim", False):
-            for evals in p.finish():
+    with tracing.span("sumcheck.finish"):
+        for p in provers:
+            if getattr(p, "multi_claim", False):
+                for evals in p.finish():
+                    send = evals[1:] if p.eq_ind_challenges is not None else evals
+                    transcript.message().write_scalars(LEVEL, send)
+                    all_evals.append(evals)
+            else:
+                evals = p.finish()
                 send = evals[1:] if p.eq_ind_challenges is not None else evals
                 transcript.message().write_scalars(LEVEL, send)
                 all_evals.append(evals)
-        else:
-            evals = p.finish()
-            send = evals[1:] if p.eq_ind_challenges is not None else evals
-            transcript.message().write_scalars(LEVEL, send)
-            all_evals.append(evals)
     return BatchSumcheckOutput(challenges, all_evals)
 
 

@@ -34,10 +34,12 @@ m_pad * chunk * 2^k >= 2^15 elements is transformed as that one batch, shape
 and K4 where a plan has cross runs, on the card; B8 twiddles); every other
 chunk (B8 or B16 data, smaller batches) keeps the packed stage loop on its
 (m, chunk * 2^k) rows. The rest of the device work is plain PyTorch but
-K1's products. Each stage of the prover is a
-`torch.profiler.record_function` range, "zerocheck.stage<i>"; each ends
-with values read back to the host, and `last_stage_times` holds the last
-proof's wall seconds per stage.
+K1's products. Each stage of the prover is a span of `utils.tracing`,
+"zerocheck/stage<i>" in the proof's table and the profiler range
+"zerocheck.stage<i>", with spans inside it ("round_evals" and "mix" in
+stage 1, "provers" in stage 2, "projection" in stage 3, and the sumcheck
+rounds'); each ends with values read back to the host, and
+`last_stage_times` holds the last proof's wall seconds per stage.
 
 Stage 2 proves a run of adjacent claims of one structure
 (`_structure_key`) as one `GroupedRegularSumcheckProver` when grouping is
@@ -57,8 +59,8 @@ claims are gathered and proven whole on every rank.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 
 import torch
 
@@ -69,6 +71,7 @@ from ...math.univariate import lagrange_evals_device, lagrange_evals_np
 from ...ntt import bitsliced_ntt
 from ...ntt.additive_ntt import AdditiveNTT, NTTDomain
 from ...parallel import mesh as mesh_mod
+from ...utils import tracing
 from . import prove as sc_prove
 from .common import LEVEL, CompositeSumClaim, SumcheckClaim
 from .front_loaded import FrontLoadedBatchProver, FrontLoadedBatchVerifier, powers
@@ -379,42 +382,43 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
 
     # --- stage 1: the univariate round, each claim on its own domain ---
     last_stage_times.clear()
-    t0 = time.perf_counter()
-    with torch.profiler.record_function("zerocheck.stage1"):
+    with _stage(1):
         batch_coeffs = [transcript.sample_scalar(LEVEL) for _ in zc_claims]
-        r_claims = []
-        for i, (zc, mls) in enumerate(zip(zc_claims, mls_per_claim)):
-            d_i = _max_degree(zc)
-            if d_i < 2:
-                # degree < 2^k with 2^k roots: the round polynomial is zero
-                r_claims.append(tower.zeros(
-                    LEVEL, (len(zc.compositions), max(max_d - 1, 0) << k), device))
-                continue
-            ev = _claim_round_evals(zc, mls, eq_pts[i], k, d_i, dom_log,
-                                    mesh if sharded[i] else None)
-            if d_i < max_d:
-                ev = _extrapolate_round_evals(ev, d_i, max_d, k, dom_log)
-            r_claims.append(ev)
-        r_all = torch.cat(r_claims)                                # (total_comps, P, 4)
-        # composition j of claim i weighs phi_i^(j+1)
-        weights = [w for phi, zc in zip(batch_coeffs, zc_claims)
-                   for w in powers(phi, len(zc.compositions))]
-        msg = transcript.message()   # always obtained, even when nothing is written
-        if max_d >= 2:
-            w_dev = tower.from_ints(LEVEL, weights, device)
-            mixed = tower.xor_reduce(tower.mul(LEVEL, r_all, w_dev[:, None, :]), 0)
-            msg.write_scalars(LEVEL, tower.to_ints(LEVEL, mixed))
-        u_challenge = transcript.sample_scalar(LEVEL)
+        with tracing.span("round_evals"):
+            r_claims = []
+            for i, (zc, mls) in enumerate(zip(zc_claims, mls_per_claim)):
+                d_i = _max_degree(zc)
+                if d_i < 2:
+                    # degree < 2^k with 2^k roots: the round polynomial is zero
+                    r_claims.append(tower.zeros(
+                        LEVEL, (len(zc.compositions), max(max_d - 1, 0) << k), device))
+                    continue
+                ev = _claim_round_evals(zc, mls, eq_pts[i], k, d_i, dom_log,
+                                        mesh if sharded[i] else None)
+                if d_i < max_d:
+                    ev = _extrapolate_round_evals(ev, d_i, max_d, k, dom_log)
+                r_claims.append(ev)
+        with tracing.span("mix"):
+            r_all = torch.cat(r_claims)                                # (total_comps, P, 4)
+            # composition j of claim i weighs phi_i^(j+1)
+            weights = [w for phi, zc in zip(batch_coeffs, zc_claims)
+                       for w in powers(phi, len(zc.compositions))]
+            msg = transcript.message()   # always obtained, even when nothing is written
+            if max_d >= 2:
+                w_dev = tower.from_ints(LEVEL, weights, device)
+                mixed = tower.xor_reduce(tower.mul(LEVEL, r_all, w_dev[:, None, :]), 0)
+                msg.write_scalars(LEVEL, tower.to_ints(LEVEL, mixed))
+            u_challenge = transcript.sample_scalar(LEVEL)
 
-        if max_d >= 2:
-            tail = lagrange_evals_device(points, u_challenge, device)[1 << k:]
-            claimed_sums = tower.to_ints(LEVEL, tower.inner_product(LEVEL, r_all, tail[None], 1))
-        else:
-            claimed_sums = [0] * sum(len(zc.compositions) for zc in zc_claims)
+            if max_d >= 2:
+                tail = lagrange_evals_device(points, u_challenge, device)[1 << k:]
+                claimed_sums = tower.to_ints(LEVEL,
+                                             tower.inner_product(LEVEL, r_all, tail[None], 1))
+            else:
+                claimed_sums = [0] * sum(len(zc.compositions) for zc in zc_claims)
 
     # --- stage 2: eq-indicator sumchecks over the unskipped variables ---
-    t0 = _stage_done("stage1", t0)
-    with torch.profiler.record_function("zerocheck.stage2"):
+    with _stage(2):
         lagr_cube = lagrange_evals_device(points[:1 << k], u_challenge, device)   # (2^k, 4)
         comp_starts = [0]
         for zc in zc_claims:
@@ -427,77 +431,81 @@ def batch_prove(zc_claims: list[ZerocheckClaim], mls_per_claim: list, transcript
                 CompositeSumClaim(cs.composition, s)
                 for cs, s in zip(to_sumcheck_claim(zc).composite_sums, sums)))
 
-        group_ok = _group_claims(group_claims, device)
-        s2_provers = []
-        i = 0
-        while i < len(zc_claims):
-            zc, eq_pt = zc_claims[i], eq_pts[i]
-            j = i + 1
-            if group_ok and zc.n_vars - k >= 1:
-                key = _structure_key(zc)
-                while j < len(zc_claims) and _structure_key(zc_claims[j]) == key:
-                    j += 1
-            nf = zc.n_vars - k - shift[i]            # variables of the folded block
-            body = _fold_skipped_group(mls_per_claim[i:j], nf + k, k, lagr_cube)
-            m2 = None
-            if sharded[i]:
-                # the high-first rounds pair rows 2^(nf + log N - 1) apart:
-                # lay the blocks out strided (or gather them when too small)
-                if nf >= mesh.log_size:
-                    m2 = mesh
-                    body = mesh_mod.to_strided(mesh, body, 2).local
+        with tracing.span("provers"):
+            group_ok = _group_claims(group_claims, device)
+            s2_provers = []
+            i = 0
+            while i < len(zc_claims):
+                zc, eq_pt = zc_claims[i], eq_pts[i]
+                j = i + 1
+                if group_ok and zc.n_vars - k >= 1:
+                    key = _structure_key(zc)
+                    while j < len(zc_claims) and _structure_key(zc_claims[j]) == key:
+                        j += 1
+                nf = zc.n_vars - k - shift[i]            # variables of the folded block
+                body = _fold_skipped_group(mls_per_claim[i:j], nf + k, k, lagr_cube)
+                m2 = None
+                if sharded[i]:
+                    # the high-first rounds pair rows 2^(nf + log N - 1) apart:
+                    # lay the blocks out strided (or gather them when too small)
+                    if nf >= mesh.log_size:
+                        m2 = mesh
+                        body = mesh_mod.to_strided(mesh, body, 2).local
+                    else:
+                        body = mesh_mod.pull_local(mesh_mod.RowShard(body, mesh, 2))
+                eq = _eq_rows(list(eq_pt), device, m2, strided=True)
+                if j - i >= 2:
+                    gstack = torch.cat([eq.expand(j - i, 1, *eq.shape), body], dim=1)
+                    s2_provers.append(sc_prove.GroupedRegularSumcheckProver(
+                        [s2_claim(g) for g in range(i, j)], gstack, order_high=True,
+                        eq_ind_challenges=tuple(eq_pt), mesh=m2))
                 else:
-                    body = mesh_mod.pull_local(mesh_mod.RowShard(body, mesh, 2))
-            eq = _eq_rows(list(eq_pt), device, m2, strided=True)
-            if j - i >= 2:
-                gstack = torch.cat([eq.expand(j - i, 1, *eq.shape), body], dim=1)
-                s2_provers.append(sc_prove.GroupedRegularSumcheckProver(
-                    [s2_claim(g) for g in range(i, j)], gstack, order_high=True,
-                    eq_ind_challenges=tuple(eq_pt), mesh=m2))
-            else:
-                s2_provers.append(sc_prove.RegularSumcheckProver(
-                    s2_claim(i), [(LEVEL, eq)] + [(LEVEL, b) for b in body[0]],
-                    order_high=True, eq_ind_challenges=tuple(eq_pt), mesh=m2))
-            del body
-            i = j
+                    s2_provers.append(sc_prove.RegularSumcheckProver(
+                        s2_claim(i), [(LEVEL, eq)] + [(LEVEL, b) for b in body[0]],
+                        order_high=True, eq_ind_challenges=tuple(eq_pt), mesh=m2))
+                del body
+                i = j
         fl2, s2_challenges = _run_front_loaded_prove(s2_provers, transcript, coeffs=batch_coeffs)
         del s2_provers
 
     # --- stage 3: the univariatizing reduction over the skipped variables ---
-    t0 = _stage_done("stage2", t0)
-    with torch.profiler.record_function("zerocheck.stage3"):
+    with _stage(3):
         red_sums = []
         for i in range(len(zc_claims)):
             red_sums.extend(fl2.multilinear_evals[i][1:])   # without the eq eval
-        proj_parts = []
-        i = 0
-        while i < len(zc_claims):   # claims of equal n_vars project together
-            nv = zc_claims[i].n_vars
-            j = i + 1
-            while j < len(zc_claims) and zc_claims[j].n_vars == nv:
-                j += 1
-            flat_mls = [ml for g in range(i, j) for ml in mls_per_claim[g]]
-            proj_parts.append(_project_skipped_stacked(
-                flat_mls, nv - shift[i], k, list(reversed(s2_challenges[:nv - k])),
-                mesh if sharded[i] else None))
-            i = j
-        proj_stack = torch.cat([*proj_parts, lagr_cube[None]])
+        with tracing.span("projection"):
+            proj_parts = []
+            i = 0
+            while i < len(zc_claims):   # claims of equal n_vars project together
+                nv = zc_claims[i].n_vars
+                j = i + 1
+                while j < len(zc_claims) and zc_claims[j].n_vars == nv:
+                    j += 1
+                flat_mls = [ml for g in range(i, j) for ml in mls_per_claim[g]]
+                proj_parts.append(_project_skipped_stacked(
+                    flat_mls, nv - shift[i], k, list(reversed(s2_challenges[:nv - k])),
+                    mesh if sharded[i] else None))
+                i = j
+            proj_stack = torch.cat([*proj_parts, lagr_cube[None]])
         n_total = proj_stack.shape[0] - 1
         red_claim = SumcheckClaim(k, n_total + 1, _reduction_composites(n_total, red_sums))
         red_prover = sc_prove.BivariateSumcheckProver(red_claim, prestacked=proj_stack,
                                                       order_high=True)
         fl3, s3_challenges = _run_front_loaded_prove([red_prover], transcript)
-    _stage_done("stage3", t0)
     skipped = list(reversed(s3_challenges))
     concat_evals = fl3.multilinear_evals[0]
     assert len(concat_evals) == n_total + 1
     return _regroup(zc_claims, orig_nvars, concat_evals, skipped, s2_challenges)
 
 
-def _stage_done(name: str, t0: float) -> float:
-    t = time.perf_counter()
-    last_stage_times[name] = t - t0
-    return t
+@contextlib.contextmanager
+def _stage(i: int):
+    """Stage i of the prover: a span "stage<i>" of `utils.tracing` (its
+    profiler range "zerocheck.stage<i>"), its seconds in
+    `last_stage_times`."""
+    with tracing.span(f"stage{i}", range=f"zerocheck.stage{i}") as s:
+        yield
+    last_stage_times[f"stage{i}"] = s.seconds
 
 
 def _regroup(zc_claims, orig_nvars, concat_evals, skipped, s2_challenges):

@@ -12,6 +12,9 @@ state machine of the reference `HasherChallenger<H>`:
   * observer mode absorbs observed bytes into the running hasher;
   * observer -> sampler marks the buffer exhausted, so the next sample does
     digest = finalize(state); state = fresh; absorb(digest); buffer = digest.
+
+Each observe and sample is a hot span of `utils.tracing`, "<phase>/transcript"
+in a proof's table.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import hashlib
 
 from ..hash.groestl import Groestl256
+from ..utils import tracing
 
 DIGEST_SIZE = 32
 
@@ -56,25 +60,27 @@ class HasherChallenger:
         self._index = 0
 
     def observe(self, data: bytes) -> None:
-        if self._mode == "sampler":
-            self._hasher.update(self._index.to_bytes(8, "little"))
-            self._mode = "observer"
-        self._hasher.update(data)
+        with tracing.span("transcript", hot=True):
+            if self._mode == "sampler":
+                self._hasher.update(self._index.to_bytes(8, "little"))
+                self._mode = "observer"
+            self._hasher.update(data)
 
     def sample(self, n: int) -> bytes:
-        if self._mode == "observer":
-            self._mode = "sampler"
-            self._index = DIGEST_SIZE
-            self._buffer = b""
-        out = bytearray()
-        while n > 0:
-            if self._index == DIGEST_SIZE:
-                digest = self._hasher.copy().finalize()
-                self._hasher = self._hash_cls().update(digest)
-                self._buffer = digest
-                self._index = 0
-            take = min(DIGEST_SIZE - self._index, n)
-            out += self._buffer[self._index:self._index + take]
-            self._index += take
-            n -= take
-        return bytes(out)
+        with tracing.span("transcript", hot=True):
+            if self._mode == "observer":
+                self._mode = "sampler"
+                self._index = DIGEST_SIZE
+                self._buffer = b""
+            out = bytearray()
+            while n > 0:
+                if self._index == DIGEST_SIZE:
+                    digest = self._hasher.copy().finalize()
+                    self._hasher = self._hash_cls().update(digest)
+                    self._buffer = digest
+                    self._index = 0
+                take = min(DIGEST_SIZE - self._index, n)
+                out += self._buffer[self._index:self._index + take]
+                self._index += take
+                n -= take
+            return bytes(out)

@@ -833,12 +833,18 @@ def check_example(name: str, out: str, metrics: tuple, device_name: str,
         raise AssertionError(f"command line {name}: {len(heads)} lines {heads}, want {want}")
 
 
+def phase_times(times: dict) -> dict:
+    """The phases and the total of `last_phase_times`, without the spans
+    inside them (keys with "/")."""
+    return {k: v for k, v in times.items() if "/" not in k}
+
+
 def check_trace(path: str, times: dict) -> None:
     """The Chrome trace at `path` holds a complete span "prove.<phase>" for
     each phase of `times` (`last_phase_times`), its durations summing to the
     phase's time within 1 ms."""
     events = json.load(open(path))["traceEvents"]
-    for k, v in times.items():
+    for k, v in phase_times(times).items():
         if k == "total":
             continue
         spans = [e for e in events if e["ph"] == "X" and e["name"] == f"prove.{k}"]
@@ -985,7 +991,8 @@ def mesh_rank(log_rows: int, seed: int) -> dict:
     p = csp.prove(core, wit, mesh=mesh)
     torch.cuda.synchronize()
     out["u32_add"] = {**digest(p), "first_ms": first, "warm_ms": (time.perf_counter() - t0) * 1e3,
-                      "phases_ms": {k: v * 1e3 for k, v in csp.last_phase_times.items()},
+                      "phases_ms": {k: v * 1e3
+                                    for k, v in phase_times(csp.last_phase_times).items()},
                       "launches": dict(cuda_lib.launches),
                       "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     del core, wit
@@ -2335,9 +2342,9 @@ def main() -> int:
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
         fri.fri_commit, groestl_cuda.tree_levels = fri_commit, tree_levels
-        log("proof %s, first run: %.1f ms (%s)" % (circuit, t_first * 1e3,
-                                                    ", ".join(f"{k} {v * 1e3:.1f}" for k, v
-                                                              in csp.last_phase_times.items())))
+        first_phases = phase_times(csp.last_phase_times)
+        log("proof %s, first run: %.1f ms (%s)" % (circuit, t_first * 1e3, ", ".join(
+            f"{k} {v * 1e3:.1f}" for k, v in first_phases.items())))
         # the kernels at this proof's own shapes against their plain versions
         # on the card: the commit's codeword (K2, K4 and K3 at its plan) and
         # every tree's layers (K5 and K6 at its leaf count)
@@ -2543,7 +2550,8 @@ def main() -> int:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             mod.main([])
-        check_example(name, out.getvalue(), metrics, device_name, len(csp.last_phase_times))
+        check_example(name, out.getvalue(), metrics, device_name,
+                      len(phase_times(csp.last_phase_times)))
         log(f"command line {name} (its defaults) in-process, {time.perf_counter() - t0:.1f} s: "
             + " | ".join(ln.strip() for ln in out.getvalue().splitlines()))
     try:
@@ -2554,7 +2562,7 @@ def main() -> int:
         raise AssertionError(f"python -m binius_tpu_torch.examples.u32_add: exit "
                              f"{sub.returncode}: {sub_err[-2000:]}")
     check_example("u32_add", sub_out, EXAMPLE_LINES["u32_add"], device_name,
-                  len(csp.last_phase_times))
+                  len(phase_times(csp.last_phase_times)))
     log(f"command line python -m binius_tpu_torch.examples.u32_add (beside the others), "
         f"{time.perf_counter() - t_sub:.1f} s: "
         + " | ".join(ln.strip() for ln in sub_out.splitlines()))

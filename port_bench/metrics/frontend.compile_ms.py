@@ -1,0 +1,10 @@
+"""frontend.compile_ms: the program's span "frontend/compile" (`utils.tracing`
+in binius_tpu_torch: the M3 tables' definition and `compile` in the
+configuration's builder), from `last_phase_times` after each proof of the
+window; mean per job. None where the program has no such span."""
+
+
+def read(run):
+    vals = [j.phases["frontend/compile"] for j in run.jobs
+            if j.error is None and "frontend/compile" in j.phases]
+    return sum(vals) / len(vals) * 1e3 if vals else None

@@ -65,6 +65,9 @@ import time
 
 import torch
 
+# the names of the program's profiler ranges (`utils.tracing` spans)
+RANGES = ("prove.", "zerocheck.", "frontend")
+
 
 def warm_and_verify(csp, core, witness, stmt) -> None:
     """The proof's warm wall time and phases (median of 3, after one
@@ -93,7 +96,8 @@ def warm_and_verify(csp, core, witness, stmt) -> None:
             raise AssertionError("proof bytes differ between runs")
     wall = statistics.median(r[0] for r in runs)
     print("warm proof, median of 3: %.3f ms (phases ms: %s)" % (wall, ", ".join(
-        f"{k} {statistics.median(r[1][k] for r in runs) * 1e3:.3f}" for k in runs[0][1])),
+        f"{k} {statistics.median(r[1][k] for r in runs) * 1e3:.3f}" for k in runs[0][1]
+        if "/" not in k)),
         flush=True)
     batch = getattr(shift_ind, "evaluate_scalar_batch", None)
     ways = {"stacked": batch} if batch else {"as the tree has it": None}
@@ -188,7 +192,8 @@ def main() -> int:
         def run():
             proof = csp.prove(core, witness, **stmt)
             print("phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                            csp.last_phase_times.items()), flush=True)
+                                            csp.last_phase_times.items() if "/" not in k),
+                  flush=True)
             return proof
 
         warm_and_verify(csp, core, witness, stmt)
@@ -332,13 +337,15 @@ def main() -> int:
             print(f"  {fam:20s} {ms:10.3f} ({count} kernels)")
 
     def per_phase(prof):
-        """Wall ms, device ms and idle share of each prove phase."""
+        """Wall ms, device ms and idle share of each prove phase and
+        zerocheck stage (not the spans inside them, whose ranges hold a
+        "/")."""
         dev_evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-                   and not ev.name.startswith(("prove.", "zerocheck."))]
+                   and not ev.name.startswith(RANGES)]
         print(f"{'phase':>16} {'wall ms':>10} {'device ms':>10} {'idle':>7}")
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA or not ev.name.startswith(("prove.",
-                                                                             "zerocheck.")):
+            if (ev.device_type == DeviceType.CUDA or not ev.name.startswith(RANGES)
+                    or "/" in ev.name):
                 continue
             lo, hi = ev.time_range.start, ev.time_range.end
             busy = sum(d.time_range.elapsed_us() for d in dev_evs
@@ -355,7 +362,7 @@ def main() -> int:
     # that launched them, nor the device spans of the prover's phase ranges
     kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-               and not ev.key.startswith(("prove.", "zerocheck."))]
+               and not ev.key.startswith(RANGES)]
     kernels.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in kernels)
     print(f"{what} 2^{args.log_rows} under the profiler: wall {wall_ms:.3f} ms, device "

@@ -60,7 +60,7 @@ def test_u32_add_command_line(capsys):
     heads = [re.match(r"\s*([a-z][\w-]*\.?)", ln).group(1) for ln in lines]
     assert [h for i, h in enumerate(heads) if h not in heads[:i]] == want
     phases = [ln.split(":")[0].strip() for ln in lines if ln.strip().startswith("prove.")]
-    assert phases == [f"prove.{k}" for k in csp.last_phase_times]
+    assert phases == [f"prove.{k}" for k in csp.last_phase_times if "/" not in k]
     assert f"proof-size: {len(proof)} bytes" in lines
 
 

@@ -145,8 +145,9 @@ def test_phase_times_are_recorded(golden):
     xs, ys = _golden_rows()
     core, witness = arith.u32_add_system(3, xs, ys, "cpu")
     csp.prove(core, witness, device="cpu")
-    assert set(csp.last_phase_times) == {"commit", "exp", "gpa", "zerocheck", "evalcheck",
-                                         "ring_switch", "piop", "total"}
+    phases = {k for k in csp.last_phase_times if "/" not in k}   # not the spans inside them
+    assert phases == {"commit", "exp", "gpa", "zerocheck", "evalcheck", "ring_switch", "piop",
+                      "total"}
 
 
 def test_unported_phases_raise(golden):
